@@ -6,7 +6,9 @@
 Phases, each printing one JSON line (a failure exits non-zero before the
 final line):
   1. device: the card (nvidia-smi name and power limit), torch and CUDA
-     versions; builds both CUDA kernels with nvcc (build/leann_torch/).
+     versions; builds both CUDA kernels with nvcc (build/leann_torch/) and
+     prints ptxas's registers / spills and, from `cuobjdump -sass`, how many
+     wgmma (HGMMA) and TMA load (UTMALDG) instructions each library holds.
   2. flat top-k kernel (csrc/flat_topk.cu) against its plain PyTorch version
      on the card: q f32[64, 384] against a bf16[100000, 384] corpus,
      k in {3, 64}, metrics l2 and cosine (id overlap >= 0.95, distances
@@ -15,20 +17,28 @@ final line):
      row of a 100000 x 384 corpus (the build's own launch), and 1024 rows of
      a 385-wide corpus whose last 1000 rows are padding; k = 64 (id overlap
      >= 0.98, no self match, no padding row).
+     Phases 2-3 time each kernel and each library call as device time: the
+     summed time of the CUDA kernels one call launches, from torch.profiler
+     over 10 calls (`kernel_ms`, `library_ms`); `call_ms` is the wall time of
+     the wrapper between CUDA events, host work included. Two launches at
+     the main path's shape must give bit-identical ids and distances.
   4. main path: 100,000 synthetic chunks -> LeannBuilder(diskann,
      hash-minilm, max_length=128, graph_degree=32).build_index, a flat index
      over the same chunks as the exact oracle, then 64 queries through
      LeannSearcher.search (top_k=3, complexity=128, beam_width=4), once to
      warm and once timed. Fails if recall@3 < 0.80 or if either kernel was
      not launched on this path.
-  5. the kernels line: per kernel its launches on the main path, its time,
-     its plain version's and a library call's time at the main path's
-     shapes, and its bound on the card.
+  5. the kernels line: per kernel its launches on the main path, its device
+     time and call time, its plain version's and a library call's time at
+     the main path's shapes, and its bound on the card.
+The script uses only the wrappers' public calls and the build module, so a
+copy of it also times an older tree of the repo the same way.
 The last line is {"ok": true, "device": {...}}.
 """
 
 import json
 import os
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -90,7 +100,8 @@ def synth_corpus(n, rng):
 
 
 def cuda_ms(torch, fn, reps: int = 10) -> float:
-    """Mean device time of ``fn`` over ``reps`` launches after one warm-up."""
+    """Mean wall time of ``fn`` between CUDA events over ``reps`` calls after
+    one warm-up: the host's work in the call included."""
     fn()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
@@ -101,6 +112,45 @@ def cuda_ms(torch, fn, reps: int = 10) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def _device_us(evt) -> float:
+    us = getattr(evt, "self_device_time_total", None)
+    return getattr(evt, "self_cuda_time_total", 0) if us is None else us
+
+
+def device_ms(torch, fn, reps: int = 10):
+    """Summed device time of the CUDA kernels ``fn`` launches, per call, and
+    the same by kernel name: torch.profiler over ``reps`` calls after one
+    warm-up."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    by_kernel = {e.key[:60]: _device_us(e) / 1e3 / reps for e in prof.key_averages()
+                 if str(e.device_type).endswith("CUDA") and _device_us(e) > 0}
+    if not by_kernel:
+        fail("torch.profiler recorded no device time")
+    return sum(by_kernel.values()), by_kernel
+
+
+def sass_counts(path, opcodes=("HGMMA", "UTMALDG")):
+    """How often each opcode occurs in a library's SASS (`cuobjdump -sass`),
+    or None where the toolkit has no cuobjdump."""
+    exe = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not os.path.exists(exe):
+        return None
+    out = subprocess.run([exe, "-sass", str(path)], capture_output=True, text=True, timeout=120).stdout
+    ops = []
+    for line in out.splitlines():  # "/*0080*/  [@P0] OPCODE.MODS operands ;"
+        tok = line.split()
+        if len(tok) > 2 and tok[0].startswith("/*") and tok[0].endswith("*/"):
+            ops.append(tok[2] if tok[1].startswith("@") else tok[1])
+    return {op: sum(o.split(".")[0] == op for o in ops) for op in opcodes}
 
 
 def bound(n_bytes: float, flops: float):
@@ -135,22 +185,31 @@ def phase_flat_topk(torch, dev, rng):
             rel = float(((dk - dp).abs() / dp.abs().clamp_min(1e-6)).max())
             err = float((dk - dp).abs().max())
             ok = ov >= 0.95 and torch.allclose(dk, dp, rtol=1e-2, atol=1e-2) and int(ik.max()) < n
+            ik2, dk2 = flat_topk(qm, e, en, n, k, metric)
+            same = bool(torch.equal(ik, ik2) and torch.equal(dk, dk2))  # deterministic
             qb = qm.to(torch.bfloat16)
-            k_ms = cuda_ms(torch, lambda: flat_topk(qm, e, en, n, k, metric))
+
+            def kernel():
+                return flat_topk(qm, e, en, n, k, metric)
+
+            (k_ms, k_parts), c_ms = device_ms(torch, kernel), cuda_ms(torch, kernel)
             p_ms = cuda_ms(torch, lambda: flat_search(e, qm, n, k, metric, en=en), reps=3)
             if metric == "l2":
                 lib = lambda: torch.topk(2.0 * (qb @ e.T).float() - en, k)  # noqa: E731
             else:
                 lib = lambda: torch.topk(qb @ e.T, k)  # noqa: E731
-            l_ms = cuda_ms(torch, lib)
+            l_ms = device_ms(torch, lib)[0]
             n_bytes = n * d * 2 + b * d * 4 + (n * 4 if metric == "l2" else 0) + b * k * 8
             b_ms, b_by = bound(n_bytes, 2.0 * b * n * d)
             row = {"phase": "flat_topk", "metric": metric, "k": k, "shape": [b, n, d], "overlap": ov,
-                   "max_rel_err": rel, "max_abs_err": err, "kernel_ms": k_ms, "plain_ms": p_ms,
-                   "library_ms": l_ms, "bound_ms": b_ms, "bound_by": b_by, "ok": bool(ok)}
+                   "max_rel_err": rel, "max_abs_err": err, "deterministic": same, "kernel_ms": k_ms,
+                   "kernel_parts_ms": k_parts, "call_ms": c_ms, "plain_ms": p_ms, "library_ms": l_ms, "bound_ms": b_ms, "bound_by": b_by,
+                   "ok": bool(ok and same)}
             emit(row)
             if not ok:
                 fail(f"flat_topk disagrees with its plain version: {row}")
+            if not same:
+                fail(f"flat_topk gave different results in two launches: {row}")
             if metric == "cosine" and k == 3:  # the oracle's own call on the main path
                 main = row
     return main
@@ -177,8 +236,14 @@ def phase_knn_panel(torch, dev, rng):
         self_hits = int((ik == (torch.arange(q_count, device=dev) + q_start)[:, None]).sum())
         pad_hits = int((ik >= n_real).sum())
         ok = ov >= 0.98 and self_hits == 0 and pad_hits == 0 and int((ik < 0).sum()) == 0
-        reps = 2 if q_count > 4096 else 10
-        k_ms = cuda_ms(torch, lambda: knn_panel(ebf, norms, k, q_start, q_count, n_real), reps=reps)
+        ik2, dk2 = knn_panel(ebf, norms, k, q_start, q_count, n_real)
+        same = bool(torch.equal(ik, ik2) and torch.equal(dk, dk2))  # deterministic
+        del ik2, dk2
+
+        def kernel():
+            return knn_panel(ebf, norms, k, q_start, q_count, n_real)
+
+        (k_ms, k_parts), c_ms = device_ms(torch, kernel), cuda_ms(torch, kernel, reps=3 if q_count > 4096 else 10)
         p_ms = cuda_ms(torch, plain, reps=1)
 
         def lib():  # one matmul + topk over the same [q_count, n] panel, in 1024-row blocks
@@ -186,15 +251,19 @@ def phase_knn_panel(torch, dev, rng):
                 qq = ebf[s : s + 1024]
                 torch.topk(2.0 * (qq @ ebf[:n_real].T).float() - norms[:n_real], k)
 
-        l_ms = cuda_ms(torch, lib, reps=1)
+        l_ms = device_ms(torch, lib)[0]
         n_bytes = n * d * 2 + n * 4 + q_count * k * 8
         b_ms, b_by = bound(n_bytes, 2.0 * q_count * n_real * d)
         row = {"phase": "knn_panel", "shape": [q_count, n, d], "n_real": n_real, "k": k, "overlap": ov,
-               "max_abs_err": err, "self_hits": self_hits, "pad_hits": pad_hits, "kernel_ms": k_ms,
-               "plain_ms": p_ms, "library_ms": l_ms, "bound_ms": b_ms, "bound_by": b_by, "ok": bool(ok)}
+               "max_abs_err": err, "self_hits": self_hits, "pad_hits": pad_hits, "deterministic": same,
+               "kernel_ms": k_ms, "kernel_parts_ms": k_parts, "call_ms": c_ms, "plain_ms": p_ms,
+               "library_ms": l_ms, "bound_ms": b_ms,
+               "bound_by": b_by, "ok": bool(ok and same)}
         emit(row)
         if not ok:
             fail(f"knn_panel disagrees with its plain version: {row}")
+        if not same:
+            fail(f"knn_panel gave different results in two launches: {row}")
         if main is None:  # the build's own launch: all rows, D = 384
             main = row
         del emb, ebf, norms, ik, dk, ip, dp
@@ -218,9 +287,7 @@ def search_profile(torch, run) -> dict:
     for evt in prof.key_averages():
         if not str(evt.device_type).endswith("CUDA"):  # host ops: their kernels are listed apart
             continue
-        dev_us = getattr(evt, "self_device_time_total", None)
-        if dev_us is None:
-            dev_us = getattr(evt, "self_cuda_time_total", 0)
+        dev_us = _device_us(evt)
         if dev_us > 0:
             kernels.append((dev_us / 1e3, evt.count, evt.key[:80]))
     kernels.sort(reverse=True)
@@ -312,10 +379,12 @@ def main() -> int:
     from leann_torch.ops import cuda_build
 
     build_s = cuda_build.build(["flat_topk", "knn_panel"])
+    sass = {name: sass_counts(cuda_build._lib_path(name)) for name in ("flat_topk", "knn_panel")}
     emit({"phase": "device", "card": card, "torch": torch.__version__, "cuda": torch.version.cuda,
           "python": sys.version.split()[0], "build_s": build_s,
           "ptxas": {k: [ln.strip() for ln in v.splitlines() if "registers" in ln or "spill" in ln]
-                    for k, v in cuda_build.BUILD_LOGS.items()}})
+                    for k, v in cuda_build.BUILD_LOGS.items()},
+          "sass": sass})
     dev = torch.device("cuda")
     torch.set_float32_matmul_precision("highest")  # the plain versions' products in full f32
     rng = np.random.default_rng(1234)
@@ -331,8 +400,8 @@ def main() -> int:
     ):
         kernels.append({"name": name, "route": "cuda", "source": src, "replaces": replaces,
                         "launches": launches[name], "max_abs_err": row["max_abs_err"], "ms": row["kernel_ms"],
-                        "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
-                        "library_ms": row["library_ms"]})
+                        "call_ms": row["call_ms"], "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+                        "bound_by": row["bound_by"], "library_ms": row["library_ms"], "sass": sass[name]})
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -1,137 +1,683 @@
-// Shared pieces of the two distance + top-k kernels (flat_topk.cu,
-// knn_panel.cu): tile loads into shared memory, a WMMA bf16 tile product
-// with f32 accumulation, and a running top-k list per query row that one
-// warp maintains in shared memory.
+// The core shared by the two distance + top-k kernels (flat_topk.cu,
+// knn_panel.cu): TMA loads into a ring of shared-memory stages behind
+// mbarriers, wgmma products (bf16 in, f32 sums in registers), and a
+// threshold-filtered top-k epilogue that works from the accumulator
+// registers into sorted per-row lists held in registers.
 //
-// Order: entries are sorted ascending by (distance, id), so ties go to the
-// lower id, the order lax.top_k and a stable sort give.
+// Block: 384 threads, 128 query rows, a range of corpus columns.
+//   warpgroup 2 (producer, 40 registers after setmaxnreg): one thread
+//     issues every TMA load. A stage holds one 64-feature box of the
+//     block's 128 query rows and the same box of a 128-row corpus tile; the
+//     ring has S stages, each behind a full and an empty mbarrier waited on
+//     with phase parity.
+//   warpgroups 0, 1 (consumers, 232 registers): warpgroup w owns query rows
+//     64 w .. 64 w + 63 (one wgmma M) and issues wgmma m64n128k16 on every
+//     stage, keeping one box in flight and releasing the one before. After
+//     a tile's last box its accumulators hold the tile's 64 x 128 dot
+//     products; the epilogue turns them into scores and offers each row's
+//     survivors to that row's list. Both warpgroups read every stage and
+//     arrive on its empty barrier, so no waiter is ever more than one phase
+//     ahead of a barrier, which the parity waits need.
+// Grid: (column splits, 128-row blocks). With more than one split each
+// block writes a partial list per row and topk_merge folds them.
+//
+// Why 128 rows in two warpgroups and not 64 rows with the warpgroups taking
+// alternate tiles (ping-pong): the epilogue's list inserts, not the
+// products, bound the kernel, and ping-pong keeps two lists per row, each
+// over half the columns, which costs about 1.8x the inserts of one list.
+// With one list per row the products no longer overlap the epilogue of the
+// same block; the other blocks on the card do not wait for it.
+//
+// Operands: bf16 row-major [rows, D], D a multiple of 16. A TMA box is 64
+// features (128 B) x 128 rows with 128-byte swizzle; TMA's out-of-bounds
+// zero fill covers the ragged row tails and D not a multiple of 64 (D = 400
+// is 7 boxes, the last half filled). The wgmma descriptors read the same
+// swizzled layout (K-major, 8-row groups 1 KB apart; warpgroup 1's rows
+// start 8 KB into the query box).
+//
+// Order: entries sort ascending by (distance, id), so ties go to the lower
+// id (lax.top_k's order). Inserts go one candidate per list at a time in a
+// fixed order, and the sorted top-k of a set under a total order does not
+// depend on insertion order, so results are deterministic; nothing is
+// accumulated with atomics.
+//
+// Shared memory per block (ops/tile_plan.py smem_bytes, the same formula):
+//   1 KB alignment slack + S x 32 KB stages + 2 x 128 f32 column norms +
+//   2 S x 8 B mbarriers = 133,184 B at S = 4 (kSmemBytes), whatever D and
+//   k: nothing is resident but the ring (D = 384, 400 and 784 alike). One block per SM
+//   (the registers allow no second).
+//
+// The tensor maps are encoded on the host per launch with the driver API's
+// cuTensorMapEncodeTiled, reached through cudaGetDriverEntryPoint (the
+// runtime hands out the driver's entry point), so the libraries link only
+// the CUDA runtime and need no -lcuda.
 #pragma once
 
+#include <cuda.h>  // CUtensorMap and its enums (types only)
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
 #include <stdint.h>
 
 namespace leann {
 
 constexpr float kInf = 3.4e38f;  // "no candidate": masked columns, empty slots
 constexpr int kEmptyId = 0x7fffffff;
-constexpr int kTile = 64;        // query rows and corpus rows per block tile
-constexpr int kChunk = 128;      // feature columns per corpus-tile load
-constexpr int kThreads = 256;    // 8 warps
-constexpr int kMaxK = 64;        // two list slots per lane
+constexpr int kBM = 128;                         // query rows per block, 64 per consumer warpgroup
+constexpr int kBN = 128;                         // corpus rows per tile
+constexpr int kBoxK = 64;                        // features per TMA box
+constexpr int kBoxBytes = 128 * kBoxK * 2;       // one box of 128 rows: 16 KB
+constexpr int kStageBytes = 2 * kBoxBytes;       // a stage: query box + corpus box
+constexpr int kThreads = 384;                    // 2 consumer + 1 producer warpgroups
+constexpr int kMaxK = 64;                        // WarpRows: two list slots per lane
+constexpr int kStages = 4;                       // ring slots (one box in flight needs two)
+constexpr int kMergeThreads = 256;
+
+__host__ __device__ __forceinline__ int feature_boxes(int d) { return (d + kBoxK - 1) / kBoxK; }
+
+// Bytes of dynamic shared memory the kernel takes (layout above).
+constexpr size_t kSmemBytes = 1024 + (size_t)kStages * kStageBytes + 2 * kBN * 4 + 2 * kStages * 8;
+
+// ---------------------------------------------------------------------------
+// PTX wrappers
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(bar), "r"(bytes) : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(bar) : "memory");
+}
+
+// Wait until the phase of parity `parity` has completed.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  }
+}
+
+__device__ __forceinline__ void tma_load_2d(uint32_t dst, const CUtensorMap* map, uint32_t bar, int c0,
+                                            int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4}], [%2];" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1)
+      : "memory");
+}
+
+__device__ __forceinline__ void bar_sync(int id, int n) {
+  asm volatile("bar.sync %0, %1;" ::"r"(id), "r"(n) : "memory");
+}
+
+__device__ __forceinline__ void bar_arrive(int id, int n) {
+  asm volatile("bar.arrive %0, %1;" ::"r"(id), "r"(n) : "memory");
+}
+
+// K-major operand in the 128-byte-swizzled layout TMA writes: rows of 128 B,
+// 8-row groups 1 KB apart (stride byte offset 64 x 16 B; the leading byte
+// offset is unused for swizzled K-major layouts and set to 1).
+__device__ __forceinline__ uint64_t sw128_desc(uint32_t saddr) {
+  return (uint64_t)((saddr & 0x3FFFF) >> 4) | ((uint64_t)1 << 16) | ((uint64_t)(1024 >> 4) << 32) |
+         ((uint64_t)1 << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() { asm volatile("wgmma.fence.sync.aligned;" ::: "memory"); }
+__device__ __forceinline__ void wgmma_commit() { asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory"); }
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;" ::"n"(N) : "memory");
+}
+
+// Keep the compiler from moving accumulator reads or writes across the
+// asynchronous wgmma window.
+__device__ __forceinline__ void fence_acc(float (&d)[64]) {
+#pragma unroll
+  for (int i = 0; i < 64; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// d[64 x 128] (+)= A[64 x 16] . B[128 x 16]^T, both K-major bf16 in shared
+// memory. Thread t of the warpgroup holds rows 16 (t / 32) + (t % 32) / 4
+// (+8) and columns 8 j + 2 (t % 4) (+1): d[4j + 2h + e] is row (+8 h),
+// column 8 j + 2 (t % 4) + e.
+__device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t da, uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]),
+        "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]),
+        "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]),
+        "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), "+f"(d[56]),
+        "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// ---------------------------------------------------------------------------
+// Sorted lists
 
 __device__ __forceinline__ bool lex_less(float a, int ai, float b, int bi) {
   return a < b || (a == b && ai < bi);
 }
 
-// Insert (cv, ci) into the sorted list (lv, li) of length k; the caller has
-// checked that it beats the last entry. All 32 lanes call with the same
-// candidate.
-__device__ __forceinline__ void warp_insert(float* lv, int* li, int k, float cv, int ci) {
-  const int lane = threadIdx.x & 31;
-  const bool h0 = lane < k, h1 = lane + 32 < k;
-  const float v0 = h0 ? lv[lane] : kInf;
-  const int i0 = h0 ? li[lane] : kEmptyId;
-  const float v1 = h1 ? lv[lane + 32] : kInf;
-  const int i1 = h1 ? li[lane + 32] : kEmptyId;
-  const unsigned m0 = __ballot_sync(0xffffffffu, h0 && lex_less(v0, i0, cv, ci));
-  const unsigned m1 = __ballot_sync(0xffffffffu, h1 && lex_less(v1, i1, cv, ci));
-  const int p = __popc(m0) + __popc(m1);  // sorted list: the smaller ones are a prefix
-  __syncwarp();
-  if (h0 && lane >= p && lane + 1 < k) { lv[lane + 1] = v0; li[lane + 1] = i0; }
-  if (h1 && lane + 32 >= p && lane + 33 < k) { lv[lane + 33] = v1; li[lane + 33] = i1; }
-  if (lane == 0) { lv[p] = cv; li[p] = ci; }
-  __syncwarp();
+struct TopkArgs {
+  const float* cn;  // corpus squared norms [n_cols] (l2), else null
+  const float* qn;  // query squared norms, indexed by q_row0 + row (l2), else null
+  float* ov;        // [rows, splits, k] distances (splits = gridDim.x)
+  int* oi;          // [rows, splits, k] ids, -1 for empty slots
+  int rows;         // query rows
+  int q_row0;       // row of query 0 in the query tensor map
+  int self_excl;    // never take column q_row0 + r for query row r
+  int l2;           // |q|^2 + |c|^2 - 2 q.c, else -q.c
+  int n_cols;       // candidate columns [0, n_cols); split s of S takes tiles
+                    // [s T / S, (s + 1) T / S) of the T = ceil(n_cols / 128)
+  int kb;           // feature boxes, ceil(D / 64)
+  int k;
+};
+
+// ---------------------------------------------------------------------------
+// The lists of a warp's 16 query rows, in registers. The accumulator gives
+// each quad of lanes (4g .. 4g + 3) rows 16 w + g and 16 w + g + 8 ("r0"
+// and "r1" below); each thread also keeps its two rows' position k - 1 as
+// the bar a candidate must beat. Two layouts behind one interface:
+//   QuadRows<SL> (k <= 4 SL; SL = 1 serves k <= 4): a row's list belongs to its quad
+//     (lane `sub` holds positions 4 s + sub), so the eight quads insert into
+//     their own rows at once;
+//   WarpRows (k <= 64): a row's list spans the warp (lane l holds positions
+//     l and l + 32), one insert at a time, with cheap shuffles per insert.
+
+template <int SL>
+struct QuadRows {
+  float v[2][SL];
+  int i[2][SL];
+  float tv[2];  // position k - 1 of rows r0, r1
+  int ti[2];
+
+  __device__ __forceinline__ void init() {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+#pragma unroll
+      for (int s = 0; s < SL; ++s) { v[h][s] = kInf; i[h][s] = kEmptyId; }
+      tv[h] = kInf;
+      ti[h] = kEmptyId;
+    }
+  }
+
+  template <int H>
+  __device__ __forceinline__ void refresh_last(int k) {
+    float x = kInf;
+    int id = kEmptyId;
+#pragma unroll
+    for (int s = 0; s < SL; ++s)
+      if (s == (k - 1) >> 2) { x = v[H][s]; id = i[H][s]; }
+    const int src = ((threadIdx.x & 31) & ~3) | ((k - 1) & 3);
+    tv[H] = __shfl_sync(0xffffffffu, x, src);
+    ti[H] = __shfl_sync(0xffffffffu, id, src);
+  }
+
+  // Insert the quad-uniform (cv, ci) into row H's list where `act`
+  // (quad-uniform, and it beats position k - 1); every lane calls.
+  template <int H>
+  __device__ __forceinline__ void insert(int k, bool act, float cv, int ci) {
+    const int lane = threadIdx.x & 31, sub = lane & 3;
+    int p = 0;  // the candidate's position: entries before it
+#pragma unroll
+    for (int s = 0; s < SL; ++s) p += (4 * s + sub < k && lex_less(v[H][s], i[H][s], cv, ci)) ? 1 : 0;
+    p += __shfl_xor_sync(0xffffffffu, p, 1);
+    p += __shfl_xor_sync(0xffffffffu, p, 2);
+    // position q > p takes q - 1: the left lane's same slot, or for sub 0
+    // lane 3's slot s - 1
+    const int left = (lane & ~3) | ((sub + 3) & 3);
+    float nv[SL];
+    int ni[SL];
+#pragma unroll
+    for (int s = 0; s < SL; ++s) {
+      nv[s] = __shfl_sync(0xffffffffu, v[H][s], left);
+      ni[s] = __shfl_sync(0xffffffffu, i[H][s], left);
+    }
+    if (act) {
+#pragma unroll
+      for (int s = SL - 1; s >= 0; --s) {
+        const int q = 4 * s + sub;
+        if (q > p) {
+          if (sub) { v[H][s] = nv[s]; i[H][s] = ni[s]; }
+          else if (s > 0) { v[H][s] = nv[s - 1]; i[H][s] = ni[s - 1]; }
+        } else if (q == p) {
+          v[H][s] = cv;
+          i[H][s] = ci;
+        }
+      }
+    }
+    refresh_last<H>(k);
+  }
+
+  // Offer the quad-uniform candidate (cv, ci) where `want`.
+  template <int H>
+  __device__ __forceinline__ void offer(int k, bool want, float cv, int ci) {
+    const bool act = want && lex_less(cv, ci, tv[H], ti[H]);
+    if (__any_sync(0xffffffffu, act)) insert<H>(k, act, cv, ci);
+  }
+
+  // Offer row H's survivors of one column pair (x0 at column c, x1 at
+  // c + 1, where ok0 / ok1), one per quad per step.
+  template <int H>
+  __device__ __forceinline__ void offer_pairs(int k, float x0, float x1, int c, bool ok0, bool ok1) {
+    const int qbase = (threadIdx.x & 31) & ~3;
+    unsigned b = ((__ballot_sync(0xffffffffu, ok0) >> qbase) & 0xFu) |
+                 (((__ballot_sync(0xffffffffu, ok1) >> qbase) & 0xFu) << 4);
+    while (__any_sync(0xffffffffu, b != 0)) {
+      const bool want = b != 0;
+      const int bit = want ? __ffs(b) - 1 : 0;
+      b &= b - 1;
+      const int src = qbase | (bit & 3), e = bit >> 2;  // quad-uniform
+      const float cv = __shfl_sync(0xffffffffu, e ? x1 : x0, src);
+      const int ci = __shfl_sync(0xffffffffu, c + e, src);
+      offer<H>(k, want, cv, ci);
+    }
+  }
+
+  // Out to the [rows, splits, k] partial lists; the warp's rows start at
+  // query row wrow0.
+  __device__ __forceinline__ void write(const TopkArgs& a, int wrow0, int split) const {
+    const int sub = threadIdx.x & 3;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int qr = wrow0 + ((threadIdx.x & 31) >> 2) + 8 * h;
+      if (qr >= a.rows) continue;
+      const size_t out = ((size_t)qr * gridDim.x + split) * a.k;
+#pragma unroll
+      for (int s = 0; s < SL; ++s)
+        if (4 * s + sub < a.k) {
+          a.ov[out + 4 * s + sub] = v[h][s];
+          a.oi[out + 4 * s + sub] = i[h][s] == kEmptyId ? -1 : i[h][s];
+        }
+    }
+  }
+};
+
+// One row's list spanning a warp: lane l holds positions l and l + 32.
+struct WarpList {
+  float v[2];
+  int i[2];
+};
+
+__device__ __forceinline__ void list_last(const WarpList& L, int k, float& tv, int& ti) {
+  tv = __shfl_sync(0xffffffffu, k <= 32 ? L.v[0] : L.v[1], (k - 1) & 31);
+  ti = __shfl_sync(0xffffffffu, k <= 32 ? L.i[0] : L.i[1], (k - 1) & 31);
 }
 
-// Offer 64 candidates (two per lane: c0/id0 and c1/id1) to one row's list.
-// Candidates at kInf are never taken.
-__device__ __forceinline__ void warp_offer64(float* lv, int* li, int k,
-                                             float c0, int id0, float c1, int id1) {
-  float tv = lv[k - 1];
-  int ti = li[k - 1];
+// Insert (cv, ci), which beats position k - 1; all lanes call with it.
+// (tv, ti) is position k - 1 afterwards.
+__device__ __forceinline__ void list_insert(WarpList& L, int k, float cv, int ci, float& tv, int& ti) {
+  const int lane = threadIdx.x & 31;
+  const unsigned m0 = __ballot_sync(0xffffffffu, lane < k && lex_less(L.v[0], L.i[0], cv, ci));
+  const unsigned m1 = __ballot_sync(0xffffffffu, lane + 32 < k && lex_less(L.v[1], L.i[1], cv, ci));
+  const int p = __popc(m0) + __popc(m1);  // sorted: the smaller entries are a prefix
+  float u0 = __shfl_up_sync(0xffffffffu, L.v[0], 1);  // position q takes q - 1
+  int j0 = __shfl_up_sync(0xffffffffu, L.i[0], 1);
+  float u1 = __shfl_up_sync(0xffffffffu, L.v[1], 1);
+  int j1 = __shfl_up_sync(0xffffffffu, L.i[1], 1);
+  const float w = __shfl_sync(0xffffffffu, L.v[0], 31);  // position 31 -> 32
+  const int x = __shfl_sync(0xffffffffu, L.i[0], 31);
+  if (lane == 0) { u1 = w; j1 = x; }
+  if (lane > p) { L.v[0] = u0; L.i[0] = j0; } else if (lane == p) { L.v[0] = cv; L.i[0] = ci; }
+  if (lane + 32 > p) { L.v[1] = u1; L.i[1] = j1; } else if (lane + 32 == p) { L.v[1] = cv; L.i[1] = ci; }
+  list_last(L, k, tv, ti);
+}
+
+// Offer 64 candidates (two per lane) to the list; kInf is never taken.
+__device__ __forceinline__ void list_offer64(WarpList& L, int k, float c0, int id0, float c1, int id1) {
+  float tv;
+  int ti;
+  list_last(L, k, tv, ti);
   unsigned m0 = __ballot_sync(0xffffffffu, c0 < kInf && lex_less(c0, id0, tv, ti));
   unsigned m1 = __ballot_sync(0xffffffffu, c1 < kInf && lex_less(c1, id1, tv, ti));
   while (m0 | m1) {
-    float cv;
-    int ci;
-    if (m0) {
-      const int src = __ffs(m0) - 1;
-      m0 &= m0 - 1;
-      cv = __shfl_sync(0xffffffffu, c0, src);
-      ci = __shfl_sync(0xffffffffu, id0, src);
-    } else {
-      const int src = __ffs(m1) - 1;
-      m1 &= m1 - 1;
-      cv = __shfl_sync(0xffffffffu, c1, src);
-      ci = __shfl_sync(0xffffffffu, id1, src);
-    }
-    tv = lv[k - 1];  // the bar rises as the list fills
-    ti = li[k - 1];
-    if (lex_less(cv, ci, tv, ti)) warp_insert(lv, li, k, cv, ci);
+    const bool first = m0 != 0;
+    const int src = __ffs(first ? m0 : m1) - 1;
+    if (first) m0 &= m0 - 1; else m1 &= m1 - 1;
+    const float cv = __shfl_sync(0xffffffffu, first ? c0 : c1, src);
+    const int ci = __shfl_sync(0xffffffffu, first ? id0 : id1, src);
+    if (lex_less(cv, ci, tv, ti)) list_insert(L, k, cv, ci, tv, ti);  // the bar rises as the list fills
   }
 }
 
-__device__ __forceinline__ void warp_init_list(float* lv, int* li, int k) {
-  const int lane = threadIdx.x & 31;
-  for (int j = lane; j < k; j += 32) { lv[j] = kInf; li[j] = kEmptyId; }
-  __syncwarp();
-}
+#define LEANN_ROW_CASE(r) \
+  case r:                 \
+    list_insert(rows[r], k, cv, ci, tv, ti); \
+    break;
 
-// True when a launch's operands meet the tile loads' layout: d a multiple of
-// 16 (the wrappers zero-pad the features) and a 16-byte-aligned base.
-__host__ __forceinline__ bool bf16_rows_ok(const void* base, int d) {
-  return d % 16 == 0 && reinterpret_cast<uintptr_t>(base) % 16 == 0;
-}
+struct WarpRows {
+  WarpList rows[16];  // row 16 w + r
+  float tv[2];        // position k - 1 of this thread's rows r0, r1
+  int ti[2];
 
-// Copy rows [row0, row0 + rows) x features [d0, d0 + width) of a row-major
-// bf16 matrix [n_rows, d] into shared memory with row stride `ld`, in 16-byte
-// vectors (see bf16_rows_ok; width is a multiple of 16); rows past n_rows are
-// zero-filled.
-__device__ __forceinline__ void load_bf16_tile(__nv_bfloat16* dst, int ld, const __nv_bfloat16* src,
-                                               int n_rows, int d, int row0, int rows, int d0,
-                                               int width) {
-  const int per_row = width / 8;
-  for (int t = threadIdx.x; t < rows * per_row; t += blockDim.x) {
-    const int r = t / per_row, c = (t % per_row) * 8;
-    const int gr = row0 + r;
-    uint4 v = make_uint4(0, 0, 0, 0);
-    if (gr < n_rows) v = *reinterpret_cast<const uint4*>(src + (size_t)gr * d + d0 + c);
-    *reinterpret_cast<uint4*>(dst + r * ld + c) = v;
+  __device__ __forceinline__ void init() {
+#pragma unroll
+    for (int r = 0; r < 16; ++r) rows[r] = WarpList{{kInf, kInf}, {kEmptyId, kEmptyId}};
+    tv[0] = tv[1] = kInf;
+    ti[0] = ti[1] = kEmptyId;
   }
-}
 
-// dots[64][ldd] (f32) = A[64 x width] . B[64 x width]^T for one feature
-// chunk, accumulated into per-warp fragments. Warp w owns output rows
-// 16*(w/2) .. +16 and columns 32*(w%2) .. +32 (two 16x16 fragments).
-using namespace nvcuda;
-struct TileAcc {
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> c[2];
-  __device__ __forceinline__ void zero() {
-    wmma::fill_fragment(c[0], 0.0f);
-    wmma::fill_fragment(c[1], 0.0f);
-  }
-  __device__ __forceinline__ void mma(const __nv_bfloat16* a, int lda, const __nv_bfloat16* b, int ldb,
-                                      int width) {
-    const int w = threadIdx.x >> 5;
-    const int r0 = 16 * (w >> 1), c0 = 32 * (w & 1);
-    wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> fa;
-    wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::col_major> fb;
-    for (int kk = 0; kk < width; kk += 16) {
-      wmma::load_matrix_sync(fa, a + r0 * lda + kk, lda);
-      wmma::load_matrix_sync(fb, b + c0 * ldb + kk, ldb);
-      wmma::mma_sync(c[0], fa, fb, c[0]);
-      wmma::load_matrix_sync(fb, b + (c0 + 16) * ldb + kk, ldb);
-      wmma::mma_sync(c[1], fa, fb, c[1]);
+  template <int H>
+  __device__ __forceinline__ void offer_pairs(int k, float x0, float x1, int c, bool ok0, bool ok1) {
+    const int lane = threadIdx.x & 31;
+    unsigned m0 = __ballot_sync(0xffffffffu, ok0), m1 = __ballot_sync(0xffffffffu, ok1);
+    while (m0 | m1) {
+      const bool first = m0 != 0;
+      const int src = __ffs(first ? m0 : m1) - 1;
+      if (first) m0 &= m0 - 1; else m1 &= m1 - 1;
+      const float cv = __shfl_sync(0xffffffffu, first ? x0 : x1, src);
+      const int ci = __shfl_sync(0xffffffffu, first ? c : c + 1, src);
+      float tv = __shfl_sync(0xffffffffu, this->tv[H], src);  // the row's bar now
+      int ti = __shfl_sync(0xffffffffu, this->ti[H], src);
+      if (!lex_less(cv, ci, tv, ti)) continue;
+      switch ((src >> 2) + 8 * H) {
+        LEANN_ROW_CASE(0) LEANN_ROW_CASE(1) LEANN_ROW_CASE(2) LEANN_ROW_CASE(3)
+        LEANN_ROW_CASE(4) LEANN_ROW_CASE(5) LEANN_ROW_CASE(6) LEANN_ROW_CASE(7)
+        LEANN_ROW_CASE(8) LEANN_ROW_CASE(9) LEANN_ROW_CASE(10) LEANN_ROW_CASE(11)
+        LEANN_ROW_CASE(12) LEANN_ROW_CASE(13) LEANN_ROW_CASE(14) default: LEANN_ROW_CASE(15)
+      }
+      if ((lane >> 2) == (src >> 2)) { this->tv[H] = tv; this->ti[H] = ti; }  // the row's quad
     }
   }
-  __device__ __forceinline__ void store(float* dots, int ldd) {
-    const int w = threadIdx.x >> 5;
-    const int r0 = 16 * (w >> 1), c0 = 32 * (w & 1);
-    wmma::store_matrix_sync(dots + r0 * ldd + c0, c[0], ldd, wmma::mem_row_major);
-    wmma::store_matrix_sync(dots + r0 * ldd + c0 + 16, c[1], ldd, wmma::mem_row_major);
+
+  // Out to the [rows, splits, k] partial lists; the warp's rows start at
+  // query row wrow0.
+  __device__ __forceinline__ void write(const TopkArgs& a, int wrow0, int split) const {
+    const int lane = threadIdx.x & 31;
+#pragma unroll
+    for (int r = 0; r < 16; ++r) {
+      const int qr = wrow0 + r;
+      if (qr >= a.rows) continue;
+      const size_t out = ((size_t)qr * gridDim.x + split) * a.k;
+      if (lane < a.k) {
+        a.ov[out + lane] = rows[r].v[0];
+        a.oi[out + lane] = rows[r].i[0] == kEmptyId ? -1 : rows[r].i[0];
+      }
+      if (lane + 32 < a.k) {
+        a.ov[out + lane + 32] = rows[r].v[1];
+        a.oi[out + lane + 32] = rows[r].i[1] == kEmptyId ? -1 : rows[r].i[1];
+      }
+    }
   }
 };
+
+#undef LEANN_ROW_CASE
+
+// ---------------------------------------------------------------------------
+// The tile kernel
+
+// The four accumulator registers of column group j: rows r0 and r1 (+8),
+// columns 8 j + 2 (lane % 4) + {0, 1}.
+#define LEANN_ACC_CASE(j) \
+  case j:                 \
+    d0 = acc[4 * j];      \
+    d1 = acc[4 * j + 1];  \
+    d2 = acc[4 * j + 2];  \
+    d3 = acc[4 * j + 3];  \
+    break;
+
+template <class Rows>
+__global__ void __launch_bounds__(kThreads, 1)
+    topk_tiles(const __grid_constant__ CUtensorMap qmap, const __grid_constant__ CUtensorMap cmap,
+               const TopkArgs a) {
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* ring = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);  // swizzle atoms: 1 KB
+  const int kb = a.kb, k = a.k;
+  constexpr int S = kStages;
+  float* cn_s = reinterpret_cast<float*>(ring + S * kStageBytes);  // [2][kBN] norms, one copy per warpgroup
+  uint64_t* full = reinterpret_cast<uint64_t*>(cn_s + 2 * kBN);
+  uint64_t* empty = full + S;
+
+  const int split = blockIdx.x, row0 = blockIdx.y * kBM;
+  const int all_tiles = (a.n_cols + kBN - 1) / kBN;
+  const int tile_lo = (int)((long long)split * all_tiles / gridDim.x);
+  const int n_tiles = (int)((long long)(split + 1) * all_tiles / gridDim.x) - tile_lo;
+  const int col_lo = tile_lo * kBN;
+  const int col_hi = min(a.n_cols, col_lo + n_tiles * kBN);
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < S; ++s) {
+      mbar_init(smem_u32(&full[s]), 1);     // the producer's expect_tx arrival + the bytes
+      mbar_init(smem_u32(&empty[s]), 256);  // every consumer thread
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x / 128;
+  if (wg == 2) {
+    // ---------------- producer ----------------
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;");
+    if (threadIdx.x == 256) {
+      const int items = n_tiles * kb;
+      for (int it = 0; it < items; ++it) {
+        const int s = it % S, round = it / S;
+        if (round > 0) mbar_wait(smem_u32(&empty[s]), (round - 1) & 1);
+        const int t = it / kb, b = it - t * kb;
+        unsigned char* stage = ring + s * kStageBytes;
+        mbar_expect_tx(smem_u32(&full[s]), kStageBytes);
+        tma_load_2d(smem_u32(stage), &qmap, smem_u32(&full[s]), b * kBoxK, a.q_row0 + row0);
+        tma_load_2d(smem_u32(stage + kBoxBytes), &cmap, smem_u32(&full[s]), b * kBoxK, col_lo + t * kBN);
+      }
+    }
+  } else {
+    // ---------------- consumers ----------------
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 232;");
+    const int tid = threadIdx.x & 127, warp = tid >> 5, lane = tid & 31;
+    const int r0 = 64 * wg + 16 * warp + (lane >> 2), r1 = r0 + 8;  // this thread's two rows (its quad's)
+    const int self0 = a.self_excl ? a.q_row0 + row0 + r0 : -1;
+    const int self1 = a.self_excl ? a.q_row0 + row0 + r1 : -1;
+    const bool live0 = row0 + r0 < a.rows, live1 = row0 + r1 < a.rows;  // padding rows take nothing
+    float qn0 = 0.0f, qn1 = 0.0f;
+    if (a.l2) {
+      if (live0) qn0 = a.qn[a.q_row0 + row0 + r0];
+      if (live1) qn1 = a.qn[a.q_row0 + row0 + r1];
+    }
+    Rows R;  // this warp's 16 rows' lists
+    R.init();
+    float* cnw = cn_s + wg * kBN;
+    const uint32_t ring_a = smem_u32(ring);
+    float acc[64];
+#pragma unroll
+    for (int i = 0; i < 64; ++i) acc[i] = 0.0f;
+
+    for (int t = 0; t < n_tiles; ++t) {
+      const int tcol0 = col_lo + t * kBN;
+      // the tile's column norms, loaded while the products run
+      const float my_cn = (a.l2 && tcol0 + tid < col_hi) ? __ldg(a.cn + tcol0 + tid) : 0.0f;
+      for (int b = 0; b < kb; ++b) {
+        const int it = t * kb + b, s = it % S;
+        mbar_wait(smem_u32(&full[s]), (it / S) & 1);
+        fence_acc(acc);
+        wgmma_fence();
+        // A: this warpgroup's 64 rows of the query box (8-row groups of 1 KB);
+        // B: the corpus box
+        const uint32_t qa = ring_a + s * kStageBytes + wg * (kBoxBytes / 2), ca = ring_a + s * kStageBytes + kBoxBytes;
+#pragma unroll
+        for (int kk = 0; kk < kBoxK / 16; ++kk)
+          wgmma_m64n128k16(acc, sw128_desc(qa + kk * 32), sw128_desc(ca + kk * 32), (b | kk) != 0);
+        wgmma_commit();
+        if (b > 0) {  // keep one box in flight; release the one before
+          wgmma_wait<1>();
+          mbar_arrive(smem_u32(&empty[(it - 1) % S]));
+        }
+      }
+      wgmma_wait<0>();
+      fence_acc(acc);
+      mbar_arrive(smem_u32(&empty[(t * kb + kb - 1) % S]));
+      bar_sync(1 + wg, 128);  // this warpgroup is past the previous tile's norms
+      cnw[tid] = my_cn;
+      bar_sync(1 + wg, 128);  // ... and this tile's are in place
+
+      // epilogue: scores from the registers; the survivors of their row's
+      // position k - 1 go into the row's list
+#pragma unroll 1
+      for (int j = 0; j < kBN / 8; ++j) {  // one copy of the insert path, not sixteen
+        float d0, d1, d2, d3;
+        switch (j) {
+          LEANN_ACC_CASE(0) LEANN_ACC_CASE(1) LEANN_ACC_CASE(2) LEANN_ACC_CASE(3)
+          LEANN_ACC_CASE(4) LEANN_ACC_CASE(5) LEANN_ACC_CASE(6) LEANN_ACC_CASE(7)
+          LEANN_ACC_CASE(8) LEANN_ACC_CASE(9) LEANN_ACC_CASE(10) LEANN_ACC_CASE(11)
+          LEANN_ACC_CASE(12) LEANN_ACC_CASE(13) LEANN_ACC_CASE(14) default: LEANN_ACC_CASE(15)
+        }
+        const int cl = 8 * j + 2 * (lane & 3), c = tcol0 + cl;
+        const bool in0 = c < col_hi, in1 = c + 1 < col_hi;
+        const float cn0 = cnw[cl], cn1 = cnw[cl + 1];
+        const float s0 = a.l2 ? (qn0 + cn0) - 2.0f * d0 : -d0;
+        const float s1 = a.l2 ? (qn0 + cn1) - 2.0f * d1 : -d1;
+        const float s2 = a.l2 ? (qn1 + cn0) - 2.0f * d2 : -d2;
+        const float s3 = a.l2 ? (qn1 + cn1) - 2.0f * d3 : -d3;
+        const bool ok0 = live0 && in0 && c != self0 && lex_less(s0, c, R.tv[0], R.ti[0]);
+        const bool ok1 = live0 && in1 && c + 1 != self0 && lex_less(s1, c + 1, R.tv[0], R.ti[0]);
+        const bool ok2 = live1 && in0 && c != self1 && lex_less(s2, c, R.tv[1], R.ti[1]);
+        const bool ok3 = live1 && in1 && c + 1 != self1 && lex_less(s3, c + 1, R.tv[1], R.ti[1]);
+        if (__any_sync(0xffffffffu, ok0 || ok1)) R.template offer_pairs<0>(k, s0, s1, c, ok0, ok1);
+        if (__any_sync(0xffffffffu, ok2 || ok3)) R.template offer_pairs<1>(k, s2, s3, c, ok2, ok3);
+      }
+    }
+    R.write(a, row0 + 64 * wg + 16 * warp, split);
+  }
+}
+
+#undef LEANN_ACC_CASE
+
+// One warp per row folds its `splits` partial lists (ids -1 = empty).
+__global__ void __launch_bounds__(kMergeThreads) topk_merge(const float* __restrict__ pv,
+                                                            const int* __restrict__ pi,
+                                                            float* __restrict__ ov, int* __restrict__ oi,
+                                                            int rows, int splits, int k) {
+  const int lane = threadIdx.x & 31;
+  const int r = blockIdx.x * (kMergeThreads / 32) + (threadIdx.x >> 5);
+  if (r >= rows) return;  // whole warp; no block-wide barrier below
+  WarpList L = {{kInf, kInf}, {kEmptyId, kEmptyId}};
+  const int n = splits * k;
+  const size_t base = (size_t)r * n;
+  for (int t0 = 0; t0 < n; t0 += 64) {
+    float c[2];
+    int id[2];
+    for (int h = 0; h < 2; ++h) {
+      const int t = t0 + lane + 32 * h;
+      c[h] = kInf;
+      id[h] = kEmptyId;
+      if (t < n && pi[base + t] >= 0) {
+        c[h] = pv[base + t];
+        id[h] = pi[base + t];
+      }
+    }
+    list_offer64(L, k, c[0], id[0], c[1], id[1]);
+  }
+  if (lane < k) {
+    ov[(size_t)r * k + lane] = L.v[0];
+    oi[(size_t)r * k + lane] = L.i[0] == kEmptyId ? -1 : L.i[0];
+  }
+  if (lane + 32 < k) {
+    ov[(size_t)r * k + lane + 32] = L.v[1];
+    oi[(size_t)r * k + lane + 32] = L.i[1] == kEmptyId ? -1 : L.i[1];
+  }
+}
+
+// ---------------------------------------------------------------------------
+// Host side
+
+typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
+                                  const cuuint64_t*, const cuuint32_t*, const cuuint32_t*,
+                                  CUtensorMapInterleave, CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                  CUtensorMapFloatOOBfill);
+
+static EncodeTiledFn encode_tiled() {
+  static EncodeTiledFn fn = nullptr;
+  if (!fn) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found) == cudaSuccess &&
+        found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiledFn>(p);
+  }
+  return fn;
+}
+
+// Map of a row-major bf16 [rows, d] matrix read in boxes of 64 features x
+// 128 rows, 128-byte swizzle, zero fill out of bounds.
+static bool make_map(CUtensorMap* map, const void* base, int rows, int d) {
+  EncodeTiledFn fn = encode_tiled();
+  if (!fn) return false;
+  const cuuint64_t dims[2] = {(cuuint64_t)d, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)d * 2};
+  const cuuint32_t box[2] = {(cuuint32_t)kBoxK, 128};
+  const cuuint32_t elem[2] = {1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(base), dims, strides, box, elem,
+            CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// True when a launch's operands meet the TMA layout: d a multiple of 16
+// (the wrappers zero-pad the features; row stride 2d a multiple of 16 B)
+// and a 16-byte-aligned base.
+static bool bf16_rows_ok(const void* base, int d) {
+  return d % 16 == 0 && d > 0 && reinterpret_cast<uintptr_t>(base) % 16 == 0;
+}
+
+template <class Rows>
+static void launch_tiles(const CUtensorMap& qmap, const CUtensorMap& cmap, const TopkArgs& a, int row_blocks,
+                         int col_splits, cudaStream_t stream) {
+  static bool attr_set = false;
+  if (!attr_set) {
+    cudaFuncSetAttribute(topk_tiles<Rows>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kSmemBytes);
+    attr_set = true;
+  }
+  topk_tiles<Rows><<<dim3(col_splits, row_blocks), kThreads, kSmemBytes, stream>>>(qmap, cmap, a);
+}
+
+// Checks the plan of ops/tile_plan.py, launches the tile kernel and, with
+// more than one column split, the merge. Query rows are rows q_row0 ..
+// q_row0 + rows of qbase [q_rows_total, d]; the corpus is cbase [c_rows, d].
+static int topk_launch(const void* qbase, int q_rows_total, const void* cbase, int c_rows, int d, TopkArgs a,
+                       int row_blocks, int col_splits, float* pv, int* pi, float* ov, int* oi,
+                       cudaStream_t stream) {
+  if (a.k < 1 || a.k > kMaxK || a.rows < 1 || row_blocks != (a.rows + kBM - 1) / kBM ||
+      col_splits < 1 || (col_splits > 1 && col_splits > (a.n_cols + kBN - 1) / kBN) ||
+      (col_splits > 1 && (!pv || !pi)) || !bf16_rows_ok(qbase, d) || !bf16_rows_ok(cbase, d))
+    return (int)cudaErrorInvalidValue;
+  CUtensorMap qmap, cmap;
+  if (!make_map(&qmap, qbase, q_rows_total, d) || !make_map(&cmap, cbase, c_rows, d))
+    return (int)cudaErrorInvalidValue;
+  a.kb = feature_boxes(d);
+  a.ov = col_splits > 1 ? pv : ov;
+  a.oi = col_splits > 1 ? pi : oi;
+  // quad-owned lists up to k = 4 (eight rows insert at once), warp-wide above
+  if (a.k <= 4)
+    launch_tiles<QuadRows<1>>(qmap, cmap, a, row_blocks, col_splits, stream);
+  else
+    launch_tiles<WarpRows>(qmap, cmap, a, row_blocks, col_splits, stream);
+  if (col_splits > 1) {
+    const int warps = kMergeThreads / 32;
+    topk_merge<<<(a.rows + warps - 1) / warps, kMergeThreads, 0, stream>>>(
+        pv, pi, ov, oi, a.rows, col_splits, a.k);
+  }
+  return (int)cudaGetLastError();
+}
 
 }  // namespace leann

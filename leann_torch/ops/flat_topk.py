@@ -1,10 +1,11 @@
 """Flat exact search: the wrapper of the fused distance + top-k CUDA kernel.
 
 Counterpart of the JAX package's ``ops/pallas_topk.py``. On a CUDA tensor
-:func:`flat_topk` launches ``csrc/flat_topk.cu`` (per-slice partial top-k,
-then a merge launch) or raises; on a CPU tensor it runs the plain version,
-``ops/distance.flat_search``. Nothing on the card's path uses the plain
-version. The kernel takes features padded to a multiple of 16
+:func:`flat_topk` launches ``csrc/flat_topk.cu`` (query rounding, the TMA +
+wgmma tile kernel over column splits, then a merge launch; the grid comes
+from ``ops/tile_plan.plan_launch``) or raises; on a CPU tensor it runs the
+plain version, ``ops/distance.flat_search``. Nothing on the card's path uses
+the plain version. The kernel takes features padded to a multiple of 16
 (``distance.pad_features``).
 """
 
@@ -16,18 +17,25 @@ from typing import Optional
 import torch
 
 from .distance import FEATURE_ALIGN, flat_search
+from .tile_plan import multiprocessors, plan_launch
 
 MAX_K = 64
 
 
-def _lib():
-    from . import cuda_build
+_launch = None
 
-    lib = cuda_build.load("flat_topk")
-    fn = lib.flat_topk_launch
-    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return fn
+
+def _lib():
+    """The launcher, bound once."""
+    global _launch
+    if _launch is None:
+        from . import cuda_build
+
+        fn = cuda_build.load("flat_topk").flat_topk_launch
+        fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        _launch = fn
+    return _launch
 
 
 def flat_topk(q: torch.Tensor, e: torch.Tensor, en: Optional[torch.Tensor], valid_n: int, k: int,
@@ -56,15 +64,21 @@ def flat_topk(q: torch.Tensor, e: torch.Tensor, en: Optional[torch.Tensor], vali
     b, d = q.shape
     n = e.shape[0]
     valid_n = max(0, min(int(valid_n), n))
-    sms = torch.cuda.get_device_properties(q.device).multi_processor_count
-    n_splits = max(1, min(sms, -(-valid_n // 64)))
-    pv = torch.empty((b, n_splits, k), dtype=torch.float32, device=q.device)
-    pi = torch.empty((b, n_splits, k), dtype=torch.int32, device=q.device)
-    ov = torch.empty((b, k), dtype=torch.float32, device=q.device)
-    oi = torch.empty((b, k), dtype=torch.int32, device=q.device)
-    stream = torch.cuda.current_stream(q.device).cuda_stream
-    rc = _lib()(q.data_ptr(), e.data_ptr(), en.data_ptr() if l2 else None, pv.data_ptr(), pi.data_ptr(),
-                ov.data_ptr(), oi.data_ptr(), b, n, d, valid_n, k, int(l2), n_splits, stream)
+    plan = plan_launch(b, valid_n, k, d, multiprocessors(q.device))
+    dev = q.device
+    qb = torch.empty((b, d), dtype=torch.bfloat16, device=dev)
+    qn = torch.empty((b,), dtype=torch.float32, device=dev)
+    pv = pi = None
+    if plan.col_splits > 1:
+        pv = torch.empty((b, plan.col_splits, k), dtype=torch.float32, device=dev)
+        pi = torch.empty((b, plan.col_splits, k), dtype=torch.int32, device=dev)
+    ov = torch.empty((b, k), dtype=torch.float32, device=dev)
+    oi = torch.empty((b, k), dtype=torch.int32, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    rc = _lib()(q.data_ptr(), e.data_ptr(), en.data_ptr() if l2 else None, qb.data_ptr(), qn.data_ptr(),
+                pv.data_ptr() if pv is not None else None, pi.data_ptr() if pi is not None else None,
+                ov.data_ptr(), oi.data_ptr(), b, n, d, valid_n, k, int(l2), plan.row_blocks, plan.col_splits,
+                stream)
     if rc != 0:
         raise RuntimeError(f"flat_topk kernel launch failed: cudaError {rc}")
     flat_topk.launches += 1

@@ -5,7 +5,8 @@ per-tile top-k and merge its caller does (``ops/graph.py``). For query rows
 ``q_start .. q_start + q_count`` of the corpus it returns the exact ``k``
 nearest corpus rows under squared L2, the row itself and rows at or beyond
 ``n_real`` excluded. On a CUDA tensor :func:`knn_panel` launches
-``csrc/knn_panel.cu`` or raises; on a CPU tensor it runs the plain version,
+``csrc/knn_panel.cu`` (the TMA + wgmma tile kernel; the grid comes from
+``ops/tile_plan.plan_launch``) or raises; on a CPU tensor it runs the plain version,
 :func:`knn_panel_plain`. :func:`panel_inputs` makes the operands, with the
 features zero-padded to the kernel's multiple of 16.
 """
@@ -18,6 +19,7 @@ from typing import Optional
 import torch
 
 from .distance import FEATURE_ALIGN, INF, pad_features, stable_topk_smallest
+from .tile_plan import multiprocessors, plan_launch
 
 MAX_K = 64
 # query rows per [rows, N] distance block of the plain version
@@ -53,14 +55,20 @@ def knn_panel_plain(ebf: torch.Tensor, norms: torch.Tensor, k: int, q_start: int
     return torch.cat(out_i), torch.cat(out_d)
 
 
-def _lib():
-    from . import cuda_build
+_launch = None
 
-    lib = cuda_build.load("knn_panel")
-    fn = lib.knn_panel_launch
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return fn
+
+def _lib():
+    """The launcher, bound once."""
+    global _launch
+    if _launch is None:
+        from . import cuda_build
+
+        fn = cuda_build.load("knn_panel").knn_panel_launch
+        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        _launch = fn
+    return _launch
 
 
 def knn_panel(ebf: torch.Tensor, norms: torch.Tensor, k: int, q_start: int = 0,
@@ -87,11 +95,18 @@ def knn_panel(ebf: torch.Tensor, norms: torch.Tensor, k: int, q_start: int = 0,
                          "(panel_inputs) and ebf 16-byte aligned")
     if not 1 <= k <= MAX_K:
         raise ValueError(f"knn_panel: k={k} outside [1, {MAX_K}]")
-    ov = torch.empty((q_count, k), dtype=torch.float32, device=ebf.device)
-    oi = torch.empty((q_count, k), dtype=torch.int32, device=ebf.device)
-    stream = torch.cuda.current_stream(ebf.device).cuda_stream
-    rc = _lib()(ebf.data_ptr(), norms.data_ptr(), ov.data_ptr(), oi.data_ptr(), n, d, q_start, q_count,
-                n_real, k, stream)
+    dev = ebf.device
+    plan = plan_launch(q_count, n_real, k, d, multiprocessors(dev))
+    pv = pi = None
+    if plan.col_splits > 1:
+        pv = torch.empty((q_count, plan.col_splits, k), dtype=torch.float32, device=dev)
+        pi = torch.empty((q_count, plan.col_splits, k), dtype=torch.int32, device=dev)
+    ov = torch.empty((q_count, k), dtype=torch.float32, device=dev)
+    oi = torch.empty((q_count, k), dtype=torch.int32, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    rc = _lib()(ebf.data_ptr(), norms.data_ptr(), pv.data_ptr() if pv is not None else None,
+                pi.data_ptr() if pi is not None else None, ov.data_ptr(), oi.data_ptr(), n, d, q_start, q_count,
+                n_real, k, plan.row_blocks, plan.col_splits, stream)
     if rc != 0:
         raise RuntimeError(f"knn_panel kernel launch failed: cudaError {rc}")
     knn_panel.launches += 1

@@ -6,13 +6,17 @@ neither jax nor the JAX package, so it also runs on a machine without JAX:
     python3 -m pytest --noconftest -m gpu tests/test_torch_gpu.py
 """
 
+import ctypes
+
 import numpy as np
 import pytest
 import torch
 
-from leann_torch.ops.distance import pad_features
+from leann_torch.ops import knn_panel as kp
+from leann_torch.ops import tile_plan
+from leann_torch.ops.distance import flat_search, pad_features
 from leann_torch.ops.flat_topk import flat_topk
-from leann_torch.ops.knn_panel import knn_panel, panel_inputs
+from leann_torch.ops.knn_panel import knn_panel, knn_panel_plain, panel_inputs
 
 pytestmark = pytest.mark.gpu
 
@@ -29,33 +33,118 @@ def _overlap(a, b):
     return np.mean([len(set(x) & set(y)) / len(x) for x, y in zip(a.tolist(), b.tolist())])
 
 
-@pytest.mark.parametrize("metric,k,d", [("l2", 3, 384), ("cosine", 64, 384), ("mips", 17, 33)])
-def test_flat_topk_matches_plain(cuda, metric, k, d):
-    rng = np.random.default_rng(3)
-    e = torch.from_numpy(rng.standard_normal((5000, d)).astype(np.float32))
-    q = torch.from_numpy(rng.standard_normal((70, d)).astype(np.float32))
+def _flat_inputs(seed, n, d, b, metric):
+    rng = np.random.default_rng(seed)
+    e = torch.from_numpy(rng.standard_normal((n, d)).astype(np.float32))
+    q = torch.from_numpy(rng.standard_normal((b, d)).astype(np.float32))
     if metric == "cosine":
         e, q = e / e.norm(dim=1, keepdim=True), q / q.norm(dim=1, keepdim=True)
+    return e, q
+
+
+@pytest.mark.parametrize("b,n", [(1, 5000), (64, 4999), (65, 5000), (130, 4999)])
+@pytest.mark.parametrize("d", [33, 384, 400, 784])
+@pytest.mark.parametrize("k", [1, 3, 64])
+@pytest.mark.parametrize("metric", ["l2", "mips", "cosine"])
+def test_flat_topk_matches_plain(cuda, metric, k, d, b, n):
+    e, q = _flat_inputs(3, n, d, b, metric)
     ebf, en = e.to(torch.bfloat16), e.square().sum(1)
+    valid_n = n - 100
     # the kernel takes features padded to a multiple of 16; the plain version any width
-    ids, dists = flat_topk(pad_features(q).to(cuda), pad_features(ebf).to(cuda), en.to(cuda), 4900, k, metric)
-    pi, pd = flat_topk(q, ebf, en, 4900, k, metric)  # CPU tensors: the plain version
+    ids, dists = flat_topk(pad_features(q).to(cuda), pad_features(ebf).to(cuda), en.to(cuda), valid_n, k, metric)
+    pi, pd = flat_topk(q, ebf, en, valid_n, k, metric)  # CPU tensors: the plain version
     assert _overlap(ids.cpu().numpy(), pi.numpy()) >= 0.95
     np.testing.assert_allclose(dists.cpu().numpy(), pd.numpy(), rtol=1e-2, atol=1e-2)
-    assert (ids.cpu().numpy() < 4900).all() and (ids.cpu().numpy() >= 0).all()
+    assert (ids.cpu().numpy() < valid_n).all() and (ids.cpu().numpy() >= 0).all()
 
 
-@pytest.mark.parametrize("d,n_real", [(384, 3000), (385, 2900)])
-def test_knn_panel_matches_plain(cuda, d, n_real):
-    emb = torch.from_numpy(np.random.default_rng(7).standard_normal((3000, d)).astype(np.float32))
-    ebf, norms = panel_inputs(emb)
-    ids, dists = knn_panel(ebf.to(cuda), norms.to(cuda), 64, q_start=100, q_count=1000, n_real=n_real)
-    pi, pd = knn_panel(ebf, norms, 64, q_start=100, q_count=1000, n_real=n_real)
+def test_flat_topk_fills_past_valid_rows(cuda):
+    e, q = _flat_inputs(4, 300, 48, 5, "l2")
+    ebf = e.to(torch.bfloat16).to(cuda)
+    ids, dists = flat_topk(q.to(cuda), ebf, e.square().sum(1).to(cuda), 10, 16, "l2")
+    ids, dists = ids.cpu().numpy(), dists.cpu().numpy()
+    assert (ids[:, :10] >= 0).all() and (ids[:, 10:] == -1).all()
+    assert np.allclose(dists[:, 10:], 3.4e38)
+
+
+@pytest.mark.parametrize("grid", ["split", "unsplit"])
+@pytest.mark.parametrize("q_count", [1, 129, 1000])
+@pytest.mark.parametrize("d", [384, 385, 784])
+def test_knn_panel_matches_plain(cuda, monkeypatch, d, q_count, grid):
+    n, n_real, q_start, k = 3000, 2900, 100, 64
+    emb = torch.from_numpy(np.random.default_rng(7).standard_normal((n, d)).astype(np.float32))
+    ebf, norms = panel_inputs(emb.to(cuda))
+    if grid == "unsplit":  # as if on a one-SM card: the row blocks alone fill it
+        monkeypatch.setattr(kp, "multiprocessors", lambda dev: 1)
+    plan = tile_plan.plan_launch(q_count, n_real, k, ebf.shape[1], kp.multiprocessors(cuda))
+    assert (plan.col_splits > 1) == (grid == "split")
+    ids, dists = knn_panel(ebf, norms, k, q_start=q_start, q_count=q_count, n_real=n_real)
+    pi, pd = knn_panel_plain(ebf, norms, k, q_start, q_count, n_real)
     ids = ids.cpu().numpy()
-    assert _overlap(ids, pi.numpy()) >= 0.98
-    assert not (ids == (np.arange(1000) + 100)[:, None]).any()
+    assert _overlap(ids, pi.cpu().numpy()) >= 0.98
+    assert not (ids == (np.arange(q_count) + q_start)[:, None]).any()
     assert ((ids >= 0) & (ids < n_real)).all()
-    np.testing.assert_allclose(dists.cpu().numpy(), pd.numpy(), rtol=1e-4, atol=1e-2)
+    np.testing.assert_allclose(dists.cpu().numpy(), pd.cpu().numpy(), rtol=1e-4, atol=1e-2)
+
+
+def _assert_lower_twin_first(ids, dists, half, own=None):
+    """Rows i and i + half are equal: wherever the upper twin is returned,
+    the lower one stands before it (unless the lower one is the query's own
+    row, ``own``), and equal distances ascend by id."""
+    own = [-1] * len(ids) if own is None else own
+    for row_i, row_d, me in zip(ids.tolist(), dists.tolist(), own):
+        pos = {x: p for p, x in enumerate(row_i)}
+        for p, x in enumerate(row_i):
+            if x >= half and x - half != me:
+                assert pos.get(x - half, len(row_i)) < p
+        for p in range(1, len(row_i)):
+            if row_d[p] == row_d[p - 1]:
+                assert row_i[p] > row_i[p - 1]
+
+
+@pytest.mark.parametrize("metric", ["l2", "mips"])
+def test_flat_topk_ties_go_to_the_lower_id(cuda, metric):
+    half, d = 2000, 384
+    e, q = _flat_inputs(5, half, d, 70, metric)
+    e = torch.cat([e, e])  # every corpus row twice: exact ties
+    ids, dists = flat_topk(q.to(cuda), e.to(torch.bfloat16).to(cuda), e.square().sum(1).to(cuda), 2 * half, 8,
+                           metric)
+    pi, _ = flat_search(e.to(torch.bfloat16), q, 2 * half, 8, metric, en=e.square().sum(1))
+    _assert_lower_twin_first(ids.cpu().numpy(), dists.cpu().numpy(), half)
+    assert _overlap(ids.cpu().numpy(), pi.numpy()) >= 0.95
+
+
+def test_knn_panel_ties_go_to_the_lower_id(cuda):
+    half = 1500
+    emb = torch.from_numpy(np.random.default_rng(9).standard_normal((half, 384)).astype(np.float32))
+    ebf, norms = panel_inputs(torch.cat([emb, emb]).to(cuda))
+    ids, dists = knn_panel(ebf, norms, 16, q_start=0, q_count=2 * half)
+    ids, dists = ids.cpu().numpy(), dists.cpu().numpy()
+    _assert_lower_twin_first(ids, dists, half, own=list(range(2 * half)))
+    # the twin is at distance ~0 and comes first; the self row never appears
+    assert (ids[:half, 0] == np.arange(half) + half).all() and (ids[half:, 0] == np.arange(half)).all()
+
+
+def test_kernels_are_deterministic(cuda):
+    e, q = _flat_inputs(6, 20000, 384, 64, "cosine")
+    ebf = e.to(torch.bfloat16).to(cuda)
+    qc = q.to(cuda)
+    a = flat_topk(qc, ebf, None, 20000, 3, "cosine")
+    b = flat_topk(qc, ebf, None, 20000, 3, "cosine")
+    assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+    eb, norms = panel_inputs(e.to(cuda))
+    a = knn_panel(eb, norms, 64)
+    b = knn_panel(eb, norms, 64)
+    assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+
+
+def test_launcher_shared_memory_matches_the_plan(cuda):
+    from leann_torch.ops import cuda_build
+
+    for name in ("flat_topk", "knn_panel"):
+        fn = cuda_build.load(name).topk_smem_bytes
+        fn.restype = ctypes.c_size_t
+        assert fn() == tile_plan.smem_bytes()
 
 
 def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
