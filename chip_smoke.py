@@ -11,7 +11,7 @@ final line):
      wgmma (HGMMA) and TMA load (UTMALDG) instructions each library holds.
   2. flat top-k kernel (csrc/flat_topk.cu) against its plain PyTorch version
      on the card: q f32[64, 384] against a bf16[100000, 384] corpus,
-     k in {3, 64}, metrics l2 and cosine (id overlap >= 0.95, distances
+     k in {3, 5, 10, 16, 64}, metrics l2 and cosine (id overlap >= 0.95, distances
      within rtol 1e-2).
   3. k-NN panel kernel (csrc/knn_panel.cu) against its plain version: every
      row of a 100000 x 384 corpus (the build's own launch), and 1024 rows of
@@ -131,11 +131,16 @@ def device_ms(torch, fn, reps: int = 10):
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    by_kernel = {e.key[:60]: _device_us(e) / 1e3 / reps for e in prof.key_averages()
-                 if str(e.device_type).endswith("CUDA") and _device_us(e) > 0}
+    by_kernel = {}
+    for e in prof.key_averages():
+        if str(e.device_type).endswith("CUDA") and _device_us(e) > 0:
+            by_kernel[e.key] = by_kernel.get(e.key, 0.0) + _device_us(e) / 1e3 / reps
     if not by_kernel:
         fail("torch.profiler recorded no device time")
-    return sum(by_kernel.values()), by_kernel
+    parts = {}  # names shortened for printing only; kernels that share a prefix add up
+    for key, ms in by_kernel.items():
+        parts[key[:60]] = parts.get(key[:60], 0.0) + ms
+    return sum(by_kernel.values()), parts
 
 
 def sass_counts(path, opcodes=("HGMMA", "UTMALDG")):
@@ -177,7 +182,7 @@ def phase_flat_topk(torch, dev, rng):
         qm, em = (q, e32) if metric == "l2" else (qc, e32c)
         e = em.to(torch.bfloat16).contiguous()
         en = em.square().sum(1).contiguous()
-        for k in (3, 64):
+        for k in (3, 5, 10, 16, 64):  # 3: the oracle's; 5: search's default top_k
             ik, dk = flat_topk(qm, e, en, n, k, metric)
             ip, dp = flat_search(e, qm, n, k, metric, en=en)
             torch.cuda.synchronize()

@@ -25,8 +25,8 @@
 // Scores: l2 -> |q|^2 + |e|^2 - 2 q.e with f32 norms (|e|^2 passed in,
 // |q|^2 from the f32 query); mips/cosine -> -q.e. Rows >= valid_n are
 // never candidates; -1 / 3.4e38 fill rows with fewer than k valid rows.
-// k <= 4 (the oracle's k = 3) takes the quad-owned lists of one slot per
-// lane, the cheapest inserts.
+// k <= 16 (the oracle's k = 3, search's default 5) takes the quad-owned
+// lists, the cheapest inserts.
 //
 // Shared memory per block: 133,184 B at every D (topk_common.cuh).
 #include "topk_common.cuh"
@@ -49,8 +49,6 @@ __global__ void __launch_bounds__(128) flat_query_prep(const float* __restrict__
   __syncthreads();
   if (threadIdx.x == 0) qn[blockIdx.x] = (part[0] + part[1]) + (part[2] + part[3]);
 }
-
-extern "C" size_t topk_smem_bytes() { return kSmemBytes; }
 
 // q f32[B, D], e bf16[N, D] (D a multiple of 16, 16-byte-aligned base),
 // en f32[N] (l2 only, else may be null); scratch qb bf16[B, D], qn f32[B],

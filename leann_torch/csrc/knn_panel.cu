@@ -39,8 +39,6 @@
 
 using namespace leann;
 
-extern "C" size_t topk_smem_bytes() { return kSmemBytes; }
-
 // e bf16[N, D] (D a multiple of 16, 16-byte-aligned base; query rows are
 // rows q_start .. q_start + q_count of e), norms f32[N]; partial lists
 // pv/pi [q_count, col_splits, k] when col_splits > 1 (else may be null);

@@ -41,10 +41,10 @@
 // depend on insertion order, so results are deterministic; nothing is
 // accumulated with atomics.
 //
-// Shared memory per block (ops/tile_plan.py smem_bytes, the same formula):
+// Shared memory per block (kSmemBytes, fixed at compile time):
 //   1 KB alignment slack + S x 32 KB stages + 2 x 128 f32 column norms +
-//   2 S x 8 B mbarriers = 133,184 B at S = 4 (kSmemBytes), whatever D and
-//   k: nothing is resident but the ring (D = 384, 400 and 784 alike). One block per SM
+//   2 S x 8 B mbarriers = 133,184 B at S = 4, whatever D and k: nothing is
+//   resident but the ring (D = 384, 400 and 784 alike). One block per SM
 //   (the registers allow no second).
 //
 // The tensor maps are encoded on the host per launch with the driver API's
@@ -76,6 +76,7 @@ __host__ __device__ __forceinline__ int feature_boxes(int d) { return (d + kBoxK
 
 // Bytes of dynamic shared memory the kernel takes (layout above).
 constexpr size_t kSmemBytes = 1024 + (size_t)kStages * kStageBytes + 2 * kBN * 4 + 2 * kStages * 8;
+static_assert(kSmemBytes <= 227 * 1024, "a block takes at most 227 KB of shared memory on sm_90");
 
 // ---------------------------------------------------------------------------
 // PTX wrappers
@@ -201,7 +202,7 @@ struct TopkArgs {
 // each quad of lanes (4g .. 4g + 3) rows 16 w + g and 16 w + g + 8 ("r0"
 // and "r1" below); each thread also keeps its two rows' position k - 1 as
 // the bar a candidate must beat. Two layouts behind one interface:
-//   QuadRows<SL> (k <= 4 SL; SL = 1 serves k <= 4): a row's list belongs to its quad
+//   QuadRows<SL> (k <= 4 SL; SL = 1 serves k <= 4, SL = 4 k <= 16): a row's list belongs to its quad
 //     (lane `sub` holds positions 4 s + sub), so the eight quads insert into
 //     their own rows at once;
 //   WarpRows (k <= 64): a row's list spans the warp (lane l holds positions
@@ -667,9 +668,11 @@ static int topk_launch(const void* qbase, int q_rows_total, const void* cbase, i
   a.kb = feature_boxes(d);
   a.ov = col_splits > 1 ? pv : ov;
   a.oi = col_splits > 1 ? pi : oi;
-  // quad-owned lists up to k = 4 (eight rows insert at once), warp-wide above
+  // quad-owned lists up to k = 16 (eight rows insert at once), warp-wide above
   if (a.k <= 4)
     launch_tiles<QuadRows<1>>(qmap, cmap, a, row_blocks, col_splits, stream);
+  else if (a.k <= 16)
+    launch_tiles<QuadRows<4>>(qmap, cmap, a, row_blocks, col_splits, stream);
   else
     launch_tiles<WarpRows>(qmap, cmap, a, row_blocks, col_splits, stream);
   if (col_splits > 1) {

@@ -1,16 +1,16 @@
 """Launch plan of the two top-k kernels (``csrc/topk_common.cuh``).
 
-Both kernels run one core: a block takes 64 query rows and a range of
-corpus columns, walks the range in 128-column tiles whose 64-feature boxes a
-producer warp streams by TMA into a ring of ``STAGES`` shared-memory slots,
-and keeps each row's running top-k in shared memory. This module decides
-the grid and the shared-memory layout with pure functions, so the CPU tests
-reach them; the kernels' own figure is ``topk_smem_bytes`` in each library.
+Both kernels run one core: a block takes 128 query rows (64 per consumer
+warpgroup) and a range of corpus columns, walks the range in 128-column
+tiles whose 64-feature boxes a producer warp streams by TMA into a ring of
+shared-memory stages, and keeps each row's running top-k in registers. The
+block's shared memory is fixed at compile time, whatever D and k
+(``kSmemBytes``, held to the card's limit by a ``static_assert`` there).
+This module decides the grid with pure functions, so the CPU tests reach it.
 """
 
 from __future__ import annotations
 
-import math
 from dataclasses import dataclass
 from functools import lru_cache
 
@@ -18,26 +18,13 @@ import torch
 
 BLOCK_ROWS = 128     # query rows per block: one wgmma M of 64 per consumer warpgroup
 TILE_COLS = 128      # corpus rows per tile (one wgmma N)
-BOX_FEATURES = 64    # features per TMA box (128 bytes of bf16: one 128B-swizzle span)
-STAGES = 4           # ring slots of the kernel (kStages)
 MAX_K = 64           # two list slots per lane of a warp
-SMEM_LIMIT = 232_448  # bytes of shared memory one block may use on sm_90
-SMEM_ALIGN = 1024     # slack for aligning the swizzled tiles to 1 KB
 
 
 @dataclass(frozen=True)
 class LaunchPlan:
     row_blocks: int  # blocks along the query rows (grid.y)
     col_splits: int  # blocks along the corpus columns (grid.x); > 1 adds a merge launch
-    smem_bytes: int  # dynamic shared memory per block
-
-
-def smem_bytes() -> int:
-    """Per block: the ring of stages, each a query box and a corpus box of
-    128 rows x 64 features, each consumer warpgroup's 128 column norms, and
-    a full and an empty mbarrier per stage. The top-k lists live in
-    registers, and no width is resident, so the figure holds at every D."""
-    return SMEM_ALIGN + STAGES * 2 * TILE_COLS * BOX_FEATURES * 2 + 2 * TILE_COLS * 4 + 2 * STAGES * 8
 
 
 def split_columns(n_cols: int, splits: int, split: int):
@@ -48,32 +35,14 @@ def split_columns(n_cols: int, splits: int, split: int):
     return lo * TILE_COLS, min(n_cols, hi * TILE_COLS)
 
 
-# Weight of one list insert against one tile step (the products and scores of
-# one 128-column tile) in the kernel's time: an insert is a chain of warp
-# shuffles, a few times a tile step's share of one warp on the H100.
-INSERT_STEPS = 5.0
-
-
-def wave_cost(row_blocks: int, splits: int, n_tiles: int, sms: int, k: int) -> float:
-    """Modelled time of a grid, in tile steps: waves of blocks (one block per
-    SM) times the longest split's tiles plus its list inserts. Each of a
-    block's query rows has one list over the split's columns, filled from empty, which takes about k (1 + ln(columns / k))
-    inserts, so many short splits pay for many fills."""
-    tiles = math.ceil(n_tiles / splits)
-    inserts = k * (1.0 + math.log(max(1.0, TILE_COLS * tiles / k)))
-    return math.ceil(row_blocks * splits / sms) * (tiles + INSERT_STEPS * inserts)
-
-
-def _col_splits(row_blocks: int, n_tiles: int, sms: int, k: int) -> int:
+def _col_splits(row_blocks: int, n_tiles: int, sms: int) -> int:
     """Split the columns only when the row blocks leave the card short of
-    work (fewer than 2 x SMs): the split count of least ``wave_cost``, on
-    ties the one with more blocks (up to one per SM), then the fewest; at
-    least two tiles per split so both consumer warpgroups have one."""
+    work (fewer than 2 x SMs), and then into one wave of blocks: every
+    split refills its lists from empty, so more splits cost more inserts.
+    At least two tiles per split."""
     if row_blocks >= 2 * sms:
         return 1
-    cap = max(1, min(n_tiles // 2, 8 * sms // row_blocks))
-    return min(range(1, cap + 1),
-               key=lambda c: (wave_cost(row_blocks, c, n_tiles, sms, k), -min(row_blocks * c, sms), c))
+    return max(1, min(n_tiles // 2, sms // row_blocks))
 
 
 @lru_cache(maxsize=256)
@@ -82,13 +51,13 @@ def plan_launch(rows: int, n_cols: int, k: int, d: int, sms: int) -> LaunchPlan:
     features (a multiple of 16) on a card with ``sms`` multiprocessors."""
     if rows < 1 or n_cols < 0 or sms < 1:
         raise ValueError(f"plan_launch: rows={rows}, n_cols={n_cols}, sms={sms}")
-    row_blocks = -(-rows // BLOCK_ROWS)
-    n_tiles = max(1, -(-n_cols // TILE_COLS))
     if not 1 <= k <= MAX_K:
         raise ValueError(f"plan_launch: k={k} outside [1, {MAX_K}]")
     if d < 1 or d % 16:
         raise ValueError(f"plan_launch: D={d} must be a positive multiple of 16")
-    return LaunchPlan(row_blocks, _col_splits(row_blocks, n_tiles, sms, k), smem_bytes())
+    row_blocks = -(-rows // BLOCK_ROWS)
+    n_tiles = max(1, -(-n_cols // TILE_COLS))
+    return LaunchPlan(row_blocks, _col_splits(row_blocks, n_tiles, sms))
 
 
 @lru_cache(maxsize=None)

@@ -6,8 +6,6 @@ neither jax nor the JAX package, so it also runs on a machine without JAX:
     python3 -m pytest --noconftest -m gpu tests/test_torch_gpu.py
 """
 
-import ctypes
-
 import numpy as np
 import pytest
 import torch
@@ -44,7 +42,7 @@ def _flat_inputs(seed, n, d, b, metric):
 
 @pytest.mark.parametrize("b,n", [(1, 5000), (64, 4999), (65, 5000), (130, 4999)])
 @pytest.mark.parametrize("d", [33, 384, 400, 784])
-@pytest.mark.parametrize("k", [1, 3, 64])
+@pytest.mark.parametrize("k", [1, 3, 5, 16, 64])
 @pytest.mark.parametrize("metric", ["l2", "mips", "cosine"])
 def test_flat_topk_matches_plain(cuda, metric, k, d, b, n):
     e, q = _flat_inputs(3, n, d, b, metric)
@@ -67,11 +65,14 @@ def test_flat_topk_fills_past_valid_rows(cuda):
     assert np.allclose(dists[:, 10:], 3.4e38)
 
 
+# n_real = N is the build's own call: the last tile (rows 2944 .. 3071) runs
+# past the corpus and TMA fills it with zeros; n_real = 2900 masks real rows
+@pytest.mark.parametrize("n_real", [2900, 3000])
 @pytest.mark.parametrize("grid", ["split", "unsplit"])
 @pytest.mark.parametrize("q_count", [1, 129, 1000])
 @pytest.mark.parametrize("d", [384, 385, 784])
-def test_knn_panel_matches_plain(cuda, monkeypatch, d, q_count, grid):
-    n, n_real, q_start, k = 3000, 2900, 100, 64
+def test_knn_panel_matches_plain(cuda, monkeypatch, d, q_count, grid, n_real):
+    n, q_start, k = 3000, 100, 64
     emb = torch.from_numpy(np.random.default_rng(7).standard_normal((n, d)).astype(np.float32))
     ebf, norms = panel_inputs(emb.to(cuda))
     if grid == "unsplit":  # as if on a one-SM card: the row blocks alone fill it
@@ -136,15 +137,6 @@ def test_kernels_are_deterministic(cuda):
     a = knn_panel(eb, norms, 64)
     b = knn_panel(eb, norms, 64)
     assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
-
-
-def test_launcher_shared_memory_matches_the_plan(cuda):
-    from leann_torch.ops import cuda_build
-
-    for name in ("flat_topk", "knn_panel"):
-        fn = cuda_build.load(name).topk_smem_bytes
-        fn.restype = ctypes.c_size_t
-        assert fn() == tile_plan.smem_bytes()
 
 
 def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
