@@ -11,12 +11,14 @@ final line):
      wgmma (HGMMA) and TMA load (UTMALDG) instructions each library holds.
   2. flat top-k kernel (csrc/flat_topk.cu) against its plain PyTorch version
      on the card: q f32[64, 384] against a bf16[100000, 384] corpus,
-     k in {3, 5, 10, 16, 64}, metrics l2 and cosine (id overlap >= 0.95, distances
-     within rtol 1e-2).
+     k in {3, 5, 10, 16, 64, 128, 256}, metrics l2 and cosine (id overlap >=
+     0.95, distances within rtol 1e-2). Above k = 64 the kernel keeps its
+     lists in shared memory (64-row blocks).
   3. k-NN panel kernel (csrc/knn_panel.cu) against its plain version: every
-     row of a 100000 x 384 corpus (the build's own launch), and 1024 rows of
-     a 385-wide corpus whose last 1000 rows are padding; k = 64 (id overlap
-     >= 0.98, no self match, no padding row).
+     row of a 100000 x 384 corpus at k = 64 (the diskann build's launch) and
+     k = 128 (the HNSW build's: M = 32, efConstruction = 128), and 1024 rows
+     of a 385-wide corpus whose last 1000 rows are padding at k = 64 (id
+     overlap >= 0.98, no self match, no padding row).
      Phases 2-3 time each kernel and each library call as device time: the
      summed time of the CUDA kernels one call launches, from torch.profiler
      over 10 calls (`kernel_ms`, `library_ms`); `call_ms` is the wall time of
@@ -28,9 +30,18 @@ final line):
      LeannSearcher.search (top_k=3, complexity=128, beam_width=4), once to
      warm and once timed. Fails if recall@3 < 0.80 or if either kernel was
      not launched on this path.
-  5. the kernels line: per kernel its launches on the main path, its device
+  5. HNSW path, the default backend: LeannBuilder(hash-minilm,
+     max_length=128) with M = 32, efConstruction = 128, cosine, compact,
+     recompute, over the same 100,000 chunks; the same 64 queries through
+     LeannSearcher.search (top_k=3, complexity=64, beam_width=8, prune_ratio
+     left to the auto-prune at N >= 50,000), once to warm and once timed,
+     scored against phase 4's flat oracle; mean hops and exact distances
+     per query from one more batch through ops/beam_search. Fails if
+     recall@3 < 0.80 or if the k-NN panel kernel was not launched.
+  6. the kernels line: per kernel and path its launches on that path (each
+     path's counts set to 0 just before it and read just after), its device
      time and call time, its plain version's and a library call's time at
-     the main path's shapes, and its bound on the card.
+     that path's shapes, and its bound on the card.
 The script uses only the wrappers' public calls and the build module, so a
 copy of it also times an older tree of the repo the same way.
 The last line is {"ok": true, "device": {...}}.
@@ -182,7 +193,7 @@ def phase_flat_topk(torch, dev, rng):
         qm, em = (q, e32) if metric == "l2" else (qc, e32c)
         e = em.to(torch.bfloat16).contiguous()
         en = em.square().sum(1).contiguous()
-        for k in (3, 5, 10, 16, 64):  # 3: the oracle's; 5: search's default top_k
+        for k in (3, 5, 10, 16, 64, 128, 256):  # 3: the oracle's; 5: search's default top_k
             ik, dk = flat_topk(qm, e, en, n, k, metric)
             ip, dp = flat_search(e, qm, n, k, metric, en=en)
             torch.cuda.synchronize()
@@ -221,11 +232,13 @@ def phase_flat_topk(torch, dev, rng):
 
 
 def phase_knn_panel(torch, dev, rng):
+    """-> {k: row} of the full-corpus launches (k = 64: diskann, 128: hnsw)."""
     from leann_torch.ops.knn_panel import knn_panel, knn_panel_plain, panel_inputs
 
-    n, k = 100_000, 64
-    main = None
-    for d, q_start, q_count, n_real in ((384, 0, n, n), (385, 4096, 1024, n - 1000)):
+    n = 100_000
+    main = {}
+    for d, q_start, q_count, n_real, k in ((384, 0, n, n, 64), (385, 4096, 1024, n - 1000, 64),
+                                           (384, 0, n, n, 128)):
         emb = torch.from_numpy(rng.standard_normal((n, d)).astype(np.float32)).to(dev)
         emb = emb / emb.norm(dim=1, keepdim=True)
         ebf, norms = panel_inputs(emb)
@@ -269,8 +282,8 @@ def phase_knn_panel(torch, dev, rng):
             fail(f"knn_panel disagrees with its plain version: {row}")
         if not same:
             fail(f"knn_panel gave different results in two launches: {row}")
-        if main is None:  # the build's own launch: all rows, D = 384
-            main = row
+        if q_count == n:  # a build's own launch: all rows, D = 384
+            main[k] = row
         del emb, ebf, norms, ik, dk, ip, dp
         torch.cuda.empty_cache()
     return main
@@ -360,6 +373,66 @@ def phase_main_path(torch, workdir: str):
     for name, cnt in launches.items():
         if cnt < 1:
             fail(f"kernel {name} was not launched on the main path")
+    return launches, (chunks, queries, truth)
+
+
+def phase_hnsw_path(torch, workdir: str, chunks, queries, truth):
+    """The default backend over phase 4's chunks, scored against its oracle."""
+    from leann_torch import LeannBuilder, LeannSearcher
+    from leann_torch.device import f32_matmuls
+    from leann_torch.ops.beam_search import beam_search_text_batch
+    from leann_torch.ops.flat_topk import flat_topk
+    from leann_torch.ops.knn_panel import knn_panel
+    from leann_torch.storage import index_all_in_bytes
+
+    prefix = os.path.join(workdir, "s100k_hnsw.leann")
+    torch.cuda.reset_peak_memory_stats()
+    flat_topk.launches = 0
+    knn_panel.launches = 0
+    builder = LeannBuilder(embedding_model="hash-minilm", max_length=128)  # hnsw: M = 32, efConstruction = 128
+    for c in chunks:
+        builder.add_text(c)
+    builder.build_index(prefix)
+    build_phases = dict(builder.phase_seconds)
+
+    searcher = LeannSearcher(prefix)
+    kw = dict(top_k=3, complexity=64, beam_width=8)  # prune_ratio=None: the auto-prune applies at N >= 50,000
+    searcher.search(queries, **kw)  # warm
+    torch.cuda.synchronize()
+    t = time.time()
+    got = searcher.search(queries, **kw)
+    torch.cuda.synchronize()
+    search_s = time.time() - t
+    launches = {"flat_topk": flat_topk.launches, "knn_panel": knn_panel.launches}
+    profile = search_profile(torch, lambda: searcher.search(queries, **kw))
+
+    # hops and exact distances per query: the same batch once more through
+    # the search program, which returns them per lane
+    be = searcher.backend
+    with f32_matmuls():
+        cfg, params = be._make_cfg(3, complexity=64, beam_width=8)
+        q_ids, q_mask = be._encoder().tokenize(queries)
+        dev = be.device
+        _, _, steps, n_exact = beam_search_text_batch(torch.from_numpy(q_ids).to(dev),
+                                                      torch.from_numpy(q_mask).to(dev), be._graph_data(), cfg,
+                                                      params)
+
+    if len(got) != 64 or any(len(r) != 3 or not all(np.isfinite(x.score) for x in r) for r in got):
+        fail("hnsw search did not return 3 finite results for each of 64 queries")
+    recall = float(np.mean([len({x.id for x in a} & {x.id for x in b}) / 3 for a, b in zip(got, truth)]))
+    row = {"phase": "hnsw_path", "n_chunks": len(chunks), "model": "hash-minilm", "backend": "hnsw",
+           "M": 32, "efConstruction": 128, "knn_k": 128, "prune_keep": cfg.prune_keep,
+           "traversal": cfg.traversal, "build_s": build_phases, "recall_at_3": recall,
+           "search_ms_per_query": search_s * 1e3 / len(queries),
+           "mean_steps": float(steps.float().mean()), "mean_n_exact": float(n_exact.float().mean()),
+           "all_in_bytes": index_all_in_bytes(prefix), "launches": launches,
+           "peak_mem_gb": torch.cuda.max_memory_allocated() / 2**30}
+    emit(row)
+    emit({"phase": "hnsw_search_profile", **profile})
+    if recall < 0.80:
+        fail(f"hnsw recall@3 {recall:.4f} below the 0.80 sanity floor")
+    if launches["knn_panel"] < 1:
+        fail("kernel knn_panel was not launched on the hnsw path")
     return launches
 
 
@@ -394,19 +467,24 @@ def main() -> int:
     torch.set_float32_matmul_precision("highest")  # the plain versions' products in full f32
     rng = np.random.default_rng(1234)
     flat_row = phase_flat_topk(torch, dev, rng)
-    knn_row = phase_knn_panel(torch, dev, rng)
+    knn_rows = phase_knn_panel(torch, dev, rng)
     with tempfile.TemporaryDirectory(dir=REPO / "build") as workdir:
-        launches = phase_main_path(torch, workdir)
+        launches = {}
+        launches["diskann"], oracle = phase_main_path(torch, workdir)
+        launches["hnsw"] = phase_hnsw_path(torch, workdir, *oracle)
 
     kernels = []
-    for name, row, src, replaces in (
-        ("flat_topk", flat_row, "leann_torch/csrc/flat_topk.cu", "leann_tpu/ops/pallas_topk.py:32"),
-        ("knn_panel", knn_row, "leann_torch/csrc/knn_panel.cu", "leann_tpu/ops/pallas_knn.py:45"),
+    for name, path, row, src, replaces in (
+        ("flat_topk", "diskann", flat_row, "leann_torch/csrc/flat_topk.cu", "leann_tpu/ops/pallas_topk.py:32"),
+        ("knn_panel", "diskann", knn_rows[64], "leann_torch/csrc/knn_panel.cu", "leann_tpu/ops/pallas_knn.py:45"),
+        ("knn_panel", "hnsw", knn_rows[128], "leann_torch/csrc/knn_panel.cu", "leann_tpu/ops/pallas_knn.py:45"),
     ):
-        kernels.append({"name": name, "route": "cuda", "source": src, "replaces": replaces,
-                        "launches": launches[name], "max_abs_err": row["max_abs_err"], "ms": row["kernel_ms"],
-                        "call_ms": row["call_ms"], "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
-                        "bound_by": row["bound_by"], "library_ms": row["library_ms"], "sass": sass[name]})
+        kernels.append({"name": name, "path": path, "k": row["k"], "route": "cuda", "source": src,
+                        "replaces": replaces, "launches": launches[path][name],
+                        "launches_by_path": {p: c[name] for p, c in launches.items()},
+                        "max_abs_err": row["max_abs_err"], "ms": row["kernel_ms"], "call_ms": row["call_ms"],
+                        "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
+                        "library_ms": row["library_ms"], "sass": sass[name]})
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -219,7 +219,7 @@ class LeannBuilder:
             raise ValueError("No non-empty chunks to index")
         if len(chunks) != len(self.chunks):
             logger.warning("dropped %d empty chunks", len(self.chunks) - len(chunks))
-        factory = get_backend(self.backend_name)  # unported backends raise before any work
+        factory = get_backend(self.backend_name)  # an unknown backend raises before any work
         prefix = str(index_path)
         Path(prefix).parent.mkdir(parents=True, exist_ok=True)
         times = self.phase_seconds

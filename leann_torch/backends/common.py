@@ -1,7 +1,9 @@
-"""Shared backend plumbing: padding helpers, the base searcher, the entry pool.
+"""Shared backend plumbing: padding helpers, the base searchers, the entry pool.
 
 Counterpart of the JAX package's ``backends/common.py`` plus the entry-pool
-rules of its ``backends/hnsw/backend.py``, which the diskann builder uses.
+rules of its ``backends/hnsw/backend.py``, which both graph builders use,
+and the state and search calls its hnsw and diskann searchers share
+(:class:`GraphSearcher`).
 """
 
 from __future__ import annotations
@@ -14,9 +16,11 @@ from typing import Any, Dict, List, Optional
 import numpy as np
 import torch
 
-from ..device import resolve_device
+from ..device import f32_matmuls, resolve_device
 from ..embeddings.compute import IN_PROCESS_MODES, compute_embeddings
-from ..storage import derive_token_cache, load_ids, load_token_cache, save_ids  # noqa: F401 (re-export)
+from ..ops.beam_search import GraphData, beam_search_batch_packed, beam_search_text_batch_packed, unpack_results
+from ..ops.pq import lift_codebooks
+from ..storage import derive_token_cache, load_ids, load_token_cache, save_ids, unpack_neighbors  # noqa: F401
 
 logger = logging.getLogger(__name__)
 
@@ -49,6 +53,10 @@ def pad_batch_rows(*arrays: np.ndarray) -> "tuple[int, list]":
         reps = np.repeat(a[:1], b - real_b, axis=0)
         out.append(np.concatenate([a, reps], axis=0))
     return real_b, out
+
+
+def not_ported(what: str, item: str) -> NotImplementedError:
+    return NotImplementedError(f"{what} is not ported to leann_torch yet ({item})")
 
 
 def _entry_points(medoid: int, n: int, count: int = N_ENTRY_POINTS) -> np.ndarray:
@@ -164,6 +172,88 @@ class BaseSearcher:
 
     def cleanup(self) -> None:
         pass
+
+
+class GraphSearcher(BaseSearcher):
+    """A graph backend's searcher: the graph, PQ codes and codebooks, stored
+    embeddings, the entry pool with its embeddings and the token store, all
+    on the searcher's device (absent parts None), and the search calls. A
+    subclass loads its npz with :meth:`_load` and gives ``_make_cfg(top_k,
+    **search_kwargs) -> (BeamConfig, encoder params)``. Both searches run
+    under :func:`~leann_torch.device.f32_matmuls`."""
+
+    def _load(self, z) -> None:
+        dev = self.device
+        self.neighbors = torch.from_numpy(unpack_neighbors(z).astype(np.int64)).to(dev)
+        self.entries = np.asarray(z["entries"])
+        self.metric = str(z["metric"])
+        self.n = int(self.neighbors.shape[0])
+        self.codes = torch.from_numpy(np.asarray(z["codes"])).to(dev) if "codes" in z else None
+        self.codebooks = None
+        if "codebooks" in z:
+            cb = np.asarray(z["codebooks"])
+            if "pq_rotation" in z:  # factorized OPQ: lift to the runtime form
+                cb = lift_codebooks(np.asarray(z["pq_rotation"]), cb)
+            self.codebooks = torch.from_numpy(np.ascontiguousarray(cb, np.float32)).to(dev)
+        self.emb = (torch.from_numpy(np.asarray(z["embeddings"], np.float32)).to(dev)
+                    if "embeddings" in z else None)
+        ee = self.load_entry_emb(z)
+        self.entry_emb = (torch.from_numpy(np.asarray(ee, np.float32)).to(dev).to(torch.bfloat16)
+                          if ee is not None else None)
+        tok = self.load_tokens()
+        self.has_tokens = tok is not None
+        self.tokens = self.lengths = None
+        if tok is not None:
+            # u16 stores widen to i32 on load (the gather indexes an embedding table)
+            self.tokens = torch.from_numpy(np.array(tok[0], np.int32)).to(dev)
+            self.lengths = torch.from_numpy(np.array(tok[1], np.int32)).to(dev)
+        self._enc = None
+
+    def _encoder(self):
+        if self._enc is None:
+            self._enc = self.get_encoder()
+        return self._enc
+
+    def _graph_data(self) -> GraphData:
+        return GraphData(
+            neighbors=self.neighbors,
+            entry_ids=torch.from_numpy(self.entries.astype(np.int64)).to(self.device),
+            emb=self.emb,
+            tokens=self.tokens,
+            lengths=self.lengths,
+            codes=self.codes,
+            codebooks=self.codebooks,
+            entry_emb=self.entry_emb,
+        )
+
+    @staticmethod
+    def _no_adaptive(kwargs) -> None:
+        if int(kwargs.pop("adaptive_steps", 0) or 0):
+            raise not_ported("beam_search_adaptive", "ROADMAP.md, left for later #2")
+
+    @f32_matmuls()
+    def search(self, query: np.ndarray, top_k: int, **kwargs) -> Dict[str, np.ndarray]:
+        self._no_adaptive(kwargs)
+        cfg, enc_params = self._make_cfg(top_k, **kwargs)
+        real_b, (qp,) = pad_batch_rows(np.ascontiguousarray(query, dtype=np.float32))
+        packed = beam_search_batch_packed(torch.from_numpy(qp).to(self.device), self._graph_data(), cfg,
+                                          enc_params)
+        labels, dists = unpack_results(packed)
+        return {"labels": labels[:real_b], "distances": dists[:real_b]}
+
+    @f32_matmuls()
+    def search_text(self, query: "str | list", top_k: int, **kwargs) -> Dict[str, np.ndarray]:
+        """Encode the query batch on the device and search it."""
+        self._no_adaptive(kwargs)
+        queries = [query] if isinstance(query, str) else list(query)
+        cfg, enc_params = self._make_cfg(top_k, need_encoder=True, **kwargs)
+        q_ids, q_mask = self._encoder().tokenize(queries)
+        real_b, (q_ids, q_mask) = pad_batch_rows(q_ids, q_mask)
+        packed = beam_search_text_batch_packed(
+            torch.from_numpy(q_ids).to(self.device), torch.from_numpy(q_mask).to(self.device),
+            self._graph_data(), cfg, enc_params)
+        labels, dists = unpack_results(packed)
+        return {"labels": labels[:real_b], "distances": dists[:real_b]}
 
 
 def mips_augment(data):

@@ -19,7 +19,6 @@ import time
 from typing import Dict, Optional
 
 import numpy as np
-import torch
 
 from ...device import f32_matmuls, resolve_device
 from ...interface import (
@@ -27,24 +26,14 @@ from ...interface import (
     LeannBackendFactoryInterface,
     LeannBackendSearcherInterface,
 )
-from ...ops.beam_search import (
-    BeamConfig,
-    GraphData,
-    beam_search_batch_packed,
-    beam_search_text_batch_packed,
-    unpack_results,
-)
+from ...ops.beam_search import BeamConfig
 from ...ops.graph import build_graph
 from ...ops.pq import choose_m, encode_pq_blocked, lift_codebooks, train_opq, train_pq
 from ...registry import register_backend
-from ...storage import pack_neighbors, save_partition, unpack_neighbors
-from ..common import BaseSearcher, _entry_pool, mips_augment, pad_batch_rows, save_ids
+from ...storage import pack_neighbors, save_partition
+from ..common import GraphSearcher, _entry_pool, mips_augment, not_ported, save_ids
 
 logger = logging.getLogger(__name__)
-
-
-def _not_ported(what: str, item: str):
-    return NotImplementedError(f"{what} is not ported to leann_torch yet ({item})")
 
 
 class DiskannBuilder(LeannBackendBuilderInterface):
@@ -66,11 +55,11 @@ class DiskannBuilder(LeannBackendBuilderInterface):
         **kwargs,
     ):
         if build_sharded:
-            raise _not_ported("the mesh-sharded build", "ROADMAP.md, left for later #10")
+            raise not_ported("the mesh-sharded build", "ROADMAP.md, left for later #10")
         if build_checkpoint_dir:
-            raise _not_ported("the checkpointed build", "ROADMAP.md, left for later #4")
+            raise not_ported("the checkpointed build", "ROADMAP.md, left for later #4")
         if num_partitions > 1:
-            raise _not_ported("LDG partitioning and relayout", "ROADMAP.md, left for later #6")
+            raise not_ported("LDG partitioning and relayout", "ROADMAP.md, left for later #6")
         self.device = resolve_device(device)
         self.distance_metric = distance_metric
         self.is_recompute = is_recompute
@@ -146,7 +135,7 @@ class DiskannBuilder(LeannBackendBuilderInterface):
         logger.info("diskann build: N=%d R=%d M(pq)=%d", n, r, m)
 
 
-class DiskannSearcher(BaseSearcher, LeannBackendSearcherInterface):
+class DiskannSearcher(GraphSearcher, LeannBackendSearcherInterface):
     """Graph, codes, codebooks, entry pool and token store all live on the
     searcher's device."""
 
@@ -154,64 +143,10 @@ class DiskannSearcher(BaseSearcher, LeannBackendSearcherInterface):
                  **kwargs):
         super().__init__(index_path, **kwargs)
         if sharded is True:
-            raise _not_ported("the sharded searcher", "ROADMAP.md, left for later #10")
+            raise not_ported("the sharded searcher", "ROADMAP.md, left for later #10")
         if token_residency == "host":
-            raise _not_ported("host token residency", "ROADMAP.md, left for later #2")
-        dev = self.device
-        z = np.load(f"{index_path}.diskann.npz", allow_pickle=False)
-        self.neighbors = torch.from_numpy(unpack_neighbors(z).astype(np.int64)).to(dev)
-        self.entries = np.asarray(z["entries"])
-        self.metric = str(z["metric"])
-        self.n = int(self.neighbors.shape[0])
-        self.codes = torch.from_numpy(np.asarray(z["codes"])).to(dev)
-        cb = np.asarray(z["codebooks"])
-        if "pq_rotation" in z:  # factorized OPQ: lift to the runtime form
-            cb = lift_codebooks(np.asarray(z["pq_rotation"]), cb)
-        self.codebooks = torch.from_numpy(np.ascontiguousarray(cb, np.float32)).to(dev)
-        self.emb = (torch.from_numpy(np.asarray(z["embeddings"], np.float32)).to(dev)
-                    if "embeddings" in z else None)
-        ee = self.load_entry_emb(z)
-        self.entry_emb = (torch.from_numpy(np.asarray(ee, np.float32)).to(dev).to(torch.bfloat16)
-                          if ee is not None else None)
-        tok = self.load_tokens()
-        self.has_tokens = tok is not None
-        self.tokens = self.lengths = None
-        if tok is not None:
-            # u16 stores widen to i32 on load (the gather indexes an embedding table)
-            self.tokens = torch.from_numpy(np.array(tok[0], np.int32)).to(dev)
-            self.lengths = torch.from_numpy(np.array(tok[1], np.int32)).to(dev)
-        self._enc = None
-
-    def _encoder(self):
-        if self._enc is None:
-            self._enc = self.get_encoder()
-        return self._enc
-
-    @f32_matmuls()
-    def search(self, query: np.ndarray, top_k: int, **kwargs) -> Dict[str, np.ndarray]:
-        if int(kwargs.pop("adaptive_steps", 0) or 0):
-            raise _not_ported("beam_search_adaptive", "ROADMAP.md, left for later #2")
-        cfg, enc_params = self._make_cfg(top_k, **kwargs)
-        real_b, (qp,) = pad_batch_rows(np.ascontiguousarray(query, dtype=np.float32))
-        packed = beam_search_batch_packed(torch.from_numpy(qp).to(self.device), self._graph_data(), cfg,
-                                          enc_params)
-        labels, dists = unpack_results(packed)
-        return {"labels": labels[:real_b], "distances": dists[:real_b]}
-
-    @f32_matmuls()
-    def search_text(self, query: "str | list", top_k: int, **kwargs) -> Dict[str, np.ndarray]:
-        """Encode the query batch on the device and search it."""
-        if int(kwargs.pop("adaptive_steps", 0) or 0):
-            raise _not_ported("beam_search_adaptive", "ROADMAP.md, left for later #2")
-        queries = [query] if isinstance(query, str) else list(query)
-        cfg, enc_params = self._make_cfg(top_k, need_encoder=True, **kwargs)
-        q_ids, q_mask = self._encoder().tokenize(queries)
-        real_b, (q_ids, q_mask) = pad_batch_rows(q_ids, q_mask)
-        packed = beam_search_text_batch_packed(
-            torch.from_numpy(q_ids).to(self.device), torch.from_numpy(q_mask).to(self.device),
-            self._graph_data(), cfg, enc_params)
-        labels, dists = unpack_results(packed)
-        return {"labels": labels[:real_b], "distances": dists[:real_b]}
+            raise not_ported("host token residency", "ROADMAP.md, left for later #2")
+        self._load(np.load(f"{index_path}.diskann.npz", allow_pickle=False))
 
     def _make_cfg(
         self,
@@ -265,18 +200,6 @@ class DiskannSearcher(BaseSearcher, LeannBackendSearcherInterface):
             enc_cfg=enc_cfg,
         )
         return cfg, enc_params
-
-    def _graph_data(self) -> GraphData:
-        return GraphData(
-            neighbors=self.neighbors,
-            entry_ids=torch.from_numpy(self.entries.astype(np.int64)).to(self.device),
-            emb=self.emb,
-            tokens=self.tokens,
-            lengths=self.lengths,
-            codes=self.codes,
-            codebooks=self.codebooks,
-            entry_emb=self.entry_emb,
-        )
 
 
 @register_backend("diskann")

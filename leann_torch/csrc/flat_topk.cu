@@ -28,7 +28,8 @@
 // k <= 16 (the oracle's k = 3, search's default 5) takes the quad-owned
 // lists, the cheapest inserts.
 //
-// Shared memory per block: 133,184 B at every D (topk_common.cuh).
+// Shared memory per block: 133,184 B at every D, 206,896 B for k > 64
+// (topk_common.cuh).
 #include "topk_common.cuh"
 
 using namespace leann;

@@ -17,7 +17,8 @@
 // from the corpus itself: a block takes 128 query rows (64 per consumer
 // warpgroup) and streams them with the corpus, box by box, through the TMA
 // ring into wgmma m64n128k16; each row's running top-k (k <= 64) lives in
-// registers across the warp. Each block reads the whole corpus and its
+// registers across the warp. Above k = 64 (the HNSW build's C = 4 R = 128)
+// the lists live in shared memory and a block takes 64 query rows. Each block reads the whole corpus and its
 // query rows' boxes once per tile from L2: 782 blocks x 782 tiles x 192 KB
 // = 117 GB for the 100K build, the 120 GB of the first version (64 rows
 // resident, the corpus once per block), since no width is kept resident.
@@ -34,7 +35,8 @@
 // a multiple of 16 (D = 385 under mips augmentation; ops/knn_panel.py
 // panel_inputs). Ties go to the lower id, as lax.top_k.
 //
-// Shared memory per block: 133,184 B at every D (topk_common.cuh).
+// Shared memory per block: 133,184 B at every D, 206,896 B for k > 64
+// (topk_common.cuh).
 #include "topk_common.cuh"
 
 using namespace leann;

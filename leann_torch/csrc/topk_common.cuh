@@ -47,6 +47,16 @@
 //   resident but the ring (D = 384, 400 and 784 alike). One block per SM
 //   (the registers allow no second).
 //
+// Above k = 64 (up to kMaxK = 256; the HNSW build asks for C = 4 R = 128)
+// the lists no longer fit in registers: 16 rows x 4-8 slots x (value, id)
+// per thread beside the 64 accumulators would spill. That instance
+// (SmemRows) keeps each row's sorted list in shared memory and takes 64
+// query rows per block, one consumer warpgroup and a producer warpgroup
+// (256 threads), with a 3-stage ring of 8 KB query + 16 KB corpus boxes:
+//   1 KB + 3 x 24 KB + 64 rows x 256 x 8 B lists (128 KB) + 1 KB norms +
+//   48 B barriers = kWideSmemBytes = 206,896 B. With 128 rows the lists
+//   alone would take 256 KB at k = 256.
+//
 // The tensor maps are encoded on the host per launch with the driver API's
 // cuTensorMapEncodeTiled, reached through cudaGetDriverEntryPoint (the
 // runtime hands out the driver's entry point), so the libraries link only
@@ -67,8 +77,8 @@ constexpr int kBN = 128;                         // corpus rows per tile
 constexpr int kBoxK = 64;                        // features per TMA box
 constexpr int kBoxBytes = 128 * kBoxK * 2;       // one box of 128 rows: 16 KB
 constexpr int kStageBytes = 2 * kBoxBytes;       // a stage: query box + corpus box
-constexpr int kThreads = 384;                    // 2 consumer + 1 producer warpgroups
-constexpr int kMaxK = 64;                        // WarpRows: two list slots per lane
+constexpr int kRegMaxK = 64;                     // WarpRows: two list slots per lane
+constexpr int kMaxK = 256;                       // SmemRows: lists in shared memory
 constexpr int kStages = 4;                       // ring slots (one box in flight needs two)
 constexpr int kMergeThreads = 256;
 
@@ -77,6 +87,15 @@ __host__ __device__ __forceinline__ int feature_boxes(int d) { return (d + kBoxK
 // Bytes of dynamic shared memory the kernel takes (layout above).
 constexpr size_t kSmemBytes = 1024 + (size_t)kStages * kStageBytes + 2 * kBN * 4 + 2 * kStages * 8;
 static_assert(kSmemBytes <= 227 * 1024, "a block takes at most 227 KB of shared memory on sm_90");
+
+// The shared-memory-list instance (64 < k <= kMaxK): 64-row blocks.
+constexpr int kWideBM = 64;
+constexpr int kWideStages = 3;
+constexpr int kWideStageBytes = kWideBM * kBoxK * 2 + kBoxBytes;     // 8 KB query + 16 KB corpus box
+constexpr size_t kListBytes = (size_t)kWideBM * kMaxK * (4 + 4);     // f32 values + i32 ids
+constexpr size_t kWideSmemBytes =
+    1024 + (size_t)kWideStages * kWideStageBytes + kListBytes + 2 * kBN * 4 + 2 * kWideStages * 8;
+static_assert(kWideSmemBytes <= 227 * 1024, "a block takes at most 227 KB of shared memory on sm_90");
 
 // ---------------------------------------------------------------------------
 // PTX wrappers
@@ -201,12 +220,14 @@ struct TopkArgs {
 // The lists of a warp's 16 query rows, in registers. The accumulator gives
 // each quad of lanes (4g .. 4g + 3) rows 16 w + g and 16 w + g + 8 ("r0"
 // and "r1" below); each thread also keeps its two rows' position k - 1 as
-// the bar a candidate must beat. Two layouts behind one interface:
+// the bar a candidate must beat. Three layouts behind one interface:
 //   QuadRows<SL> (k <= 4 SL; SL = 1 serves k <= 4, SL = 4 k <= 16): a row's list belongs to its quad
 //     (lane `sub` holds positions 4 s + sub), so the eight quads insert into
 //     their own rows at once;
 //   WarpRows (k <= 64): a row's list spans the warp (lane l holds positions
-//     l and l + 32), one insert at a time, with cheap shuffles per insert.
+//     l and l + 32), one insert at a time, with cheap shuffles per insert;
+//   SmemRows (k <= 256): as WarpRows, but the lists lie in shared memory
+//     (lane l owns positions l + 32 s), read and written back per insert.
 
 template <int SL>
 struct QuadRows {
@@ -427,6 +448,118 @@ struct WarpRows {
 
 #undef LEANN_ROW_CASE
 
+// Insert (cv, ci), which beats position k - 1, into the sorted list (v, id)
+// of k <= kMaxK entries in shared memory; all lanes of the warp call with it.
+// Lane l reads and writes only its own positions l + 32 s, so no lane waits
+// on another's stores. (tv, ti) is position k - 1 afterwards.
+__device__ __forceinline__ void slist_insert(float* v, int* id, int k, float cv, int ci, float& tv, int& ti) {
+  constexpr int SL = kMaxK / 32;
+  const int lane = threadIdx.x & 31;
+  float x[SL];
+  int y[SL];
+  int p = 0;  // the candidate's position: entries before it (a sorted prefix)
+#pragma unroll
+  for (int s = 0; s < SL; ++s) {
+    const int q = lane + 32 * s;
+    const bool in = q < k;
+    x[s] = in ? v[q] : kInf;
+    y[s] = in ? id[q] : kEmptyId;
+    p += __popc(__ballot_sync(0xffffffffu, in && lex_less(x[s], y[s], cv, ci)));
+  }
+  float cw = kInf;  // lane 31's entry of slot s - 1 before the insert
+  int cwi = kEmptyId;
+#pragma unroll
+  for (int s = 0; s < SL; ++s) {
+    float u = __shfl_up_sync(0xffffffffu, x[s], 1);  // position q takes q - 1
+    int j = __shfl_up_sync(0xffffffffu, y[s], 1);
+    const float nw = __shfl_sync(0xffffffffu, x[s], 31);
+    const int nwi = __shfl_sync(0xffffffffu, y[s], 31);
+    if (lane == 0) { u = cw; j = cwi; }
+    cw = nw;
+    cwi = nwi;
+    const int q = lane + 32 * s;
+    if (q < k && q >= p) {
+      if (q == p) { u = cv; j = ci; }
+      v[q] = u;
+      id[q] = j;
+      x[s] = u;
+      y[s] = j;
+    }
+  }
+  float lv = kInf;
+  int li = kEmptyId;
+#pragma unroll
+  for (int s = 0; s < SL; ++s)
+    if (s == (k - 1) >> 5) { lv = x[s]; li = y[s]; }
+  tv = __shfl_sync(0xffffffffu, lv, (k - 1) & 31);
+  ti = __shfl_sync(0xffffffffu, li, (k - 1) & 31);
+}
+
+struct SmemRows {
+  float* v;  // [16][kMaxK]: row 16 w + r at v + r kMaxK (bank = lane at every slot)
+  int* id;
+  float tv[2];  // position k - 1 of this thread's rows r0, r1
+  int ti[2];
+
+  // lists: the block's [kWideBM][kMaxK] values, then as many ids
+  __device__ __forceinline__ void bind(unsigned char* lists, int warp) {
+    v = reinterpret_cast<float*>(lists) + warp * 16 * kMaxK;
+    id = reinterpret_cast<int*>(lists + (size_t)kWideBM * kMaxK * 4) + warp * 16 * kMaxK;
+  }
+
+  __device__ __forceinline__ void init() {
+    const int lane = threadIdx.x & 31;
+    for (int q = lane; q < 16 * kMaxK; q += 32) { v[q] = kInf; id[q] = kEmptyId; }
+    tv[0] = tv[1] = kInf;
+    ti[0] = ti[1] = kEmptyId;
+  }
+
+  template <int H>
+  __device__ __forceinline__ void offer_pairs(int k, float x0, float x1, int c, bool ok0, bool ok1) {
+    const int lane = threadIdx.x & 31;
+    unsigned m0 = __ballot_sync(0xffffffffu, ok0), m1 = __ballot_sync(0xffffffffu, ok1);
+    while (m0 | m1) {
+      const bool first = m0 != 0;
+      const int src = __ffs(first ? m0 : m1) - 1;
+      if (first) m0 &= m0 - 1; else m1 &= m1 - 1;
+      const float cv = __shfl_sync(0xffffffffu, first ? x0 : x1, src);
+      const int ci = __shfl_sync(0xffffffffu, first ? c : c + 1, src);
+      float tv = __shfl_sync(0xffffffffu, this->tv[H], src);  // the row's bar now
+      int ti = __shfl_sync(0xffffffffu, this->ti[H], src);
+      if (!lex_less(cv, ci, tv, ti)) continue;
+      const int r = (src >> 2) + 8 * H;
+      slist_insert(v + r * kMaxK, id + r * kMaxK, k, cv, ci, tv, ti);
+      if ((lane >> 2) == (src >> 2)) { this->tv[H] = tv; this->ti[H] = ti; }  // the row's quad
+    }
+  }
+
+  __device__ __forceinline__ void write(const TopkArgs& a, int wrow0, int split) const {
+    const int lane = threadIdx.x & 31;
+    for (int r = 0; r < 16; ++r) {
+      const int qr = wrow0 + r;
+      if (qr >= a.rows) continue;
+      const size_t out = ((size_t)qr * gridDim.x + split) * a.k;
+      for (int q = lane; q < a.k; q += 32) {
+        a.ov[out + q] = v[r * kMaxK + q];
+        a.oi[out + q] = id[r * kMaxK + q] == kEmptyId ? -1 : id[r * kMaxK + q];
+      }
+    }
+  }
+};
+
+// Block shape of an instance: consumer warpgroups (64 query rows each),
+// ring stages, list bytes in shared memory and the dynamic shared memory.
+template <class Rows>
+struct BlockShape {
+  static constexpr int warpgroups = 2, stages = kStages;
+  static constexpr size_t lists = 0, smem = kSmemBytes;
+};
+template <>
+struct BlockShape<SmemRows> {
+  static constexpr int warpgroups = 1, stages = kWideStages;
+  static constexpr size_t lists = kListBytes, smem = kWideSmemBytes;
+};
+
 // ---------------------------------------------------------------------------
 // The tile kernel
 
@@ -441,18 +574,20 @@ struct WarpRows {
     break;
 
 template <class Rows>
-__global__ void __launch_bounds__(kThreads, 1)
+__global__ void __launch_bounds__(128 * (BlockShape<Rows>::warpgroups + 1), 1)
     topk_tiles(const __grid_constant__ CUtensorMap qmap, const __grid_constant__ CUtensorMap cmap,
                const TopkArgs a) {
   extern __shared__ unsigned char smem_raw[];
   unsigned char* ring = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);  // swizzle atoms: 1 KB
   const int kb = a.kb, k = a.k;
-  constexpr int S = kStages;
-  float* cn_s = reinterpret_cast<float*>(ring + S * kStageBytes);  // [2][kBN] norms, one copy per warpgroup
+  constexpr int WG = BlockShape<Rows>::warpgroups, S = BlockShape<Rows>::stages;
+  constexpr int BM = 64 * WG, QBOX = BM * kBoxK * 2, STAGE = QBOX + kBoxBytes;  // query box, then corpus box
+  float* cn_s = reinterpret_cast<float*>(ring + S * STAGE);  // [2][kBN] norms, one copy per warpgroup
   uint64_t* full = reinterpret_cast<uint64_t*>(cn_s + 2 * kBN);
   uint64_t* empty = full + S;
+  unsigned char* lists = reinterpret_cast<unsigned char*>(empty + S);  // SmemRows only
 
-  const int split = blockIdx.x, row0 = blockIdx.y * kBM;
+  const int split = blockIdx.x, row0 = blockIdx.y * BM;
   const int all_tiles = (a.n_cols + kBN - 1) / kBN;
   const int tile_lo = (int)((long long)split * all_tiles / gridDim.x);
   const int n_tiles = (int)((long long)(split + 1) * all_tiles / gridDim.x) - tile_lo;
@@ -462,31 +597,32 @@ __global__ void __launch_bounds__(kThreads, 1)
   if (threadIdx.x == 0) {
     for (int s = 0; s < S; ++s) {
       mbar_init(smem_u32(&full[s]), 1);     // the producer's expect_tx arrival + the bytes
-      mbar_init(smem_u32(&empty[s]), 256);  // every consumer thread
+      mbar_init(smem_u32(&empty[s]), 128 * WG);  // every consumer thread
     }
     asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
   }
   __syncthreads();
 
   const int wg = threadIdx.x / 128;
-  if (wg == 2) {
+  if (wg == WG) {
     // ---------------- producer ----------------
-    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;");
-    if (threadIdx.x == 256) {
+    if constexpr (WG == 2) asm volatile("setmaxnreg.dec.sync.aligned.u32 40;");
+    if (threadIdx.x == 128 * WG) {
       const int items = n_tiles * kb;
       for (int it = 0; it < items; ++it) {
         const int s = it % S, round = it / S;
         if (round > 0) mbar_wait(smem_u32(&empty[s]), (round - 1) & 1);
         const int t = it / kb, b = it - t * kb;
-        unsigned char* stage = ring + s * kStageBytes;
-        mbar_expect_tx(smem_u32(&full[s]), kStageBytes);
+        unsigned char* stage = ring + s * STAGE;
+        mbar_expect_tx(smem_u32(&full[s]), STAGE);
         tma_load_2d(smem_u32(stage), &qmap, smem_u32(&full[s]), b * kBoxK, a.q_row0 + row0);
-        tma_load_2d(smem_u32(stage + kBoxBytes), &cmap, smem_u32(&full[s]), b * kBoxK, col_lo + t * kBN);
+        tma_load_2d(smem_u32(stage + QBOX), &cmap, smem_u32(&full[s]), b * kBoxK, col_lo + t * kBN);
       }
     }
   } else {
     // ---------------- consumers ----------------
-    asm volatile("setmaxnreg.inc.sync.aligned.u32 232;");
+    // (one consumer warpgroup: 256 threads may take 255 registers each)
+    if constexpr (WG == 2) asm volatile("setmaxnreg.inc.sync.aligned.u32 232;");
     const int tid = threadIdx.x & 127, warp = tid >> 5, lane = tid & 31;
     const int r0 = 64 * wg + 16 * warp + (lane >> 2), r1 = r0 + 8;  // this thread's two rows (its quad's)
     const int self0 = a.self_excl ? a.q_row0 + row0 + r0 : -1;
@@ -498,6 +634,7 @@ __global__ void __launch_bounds__(kThreads, 1)
       if (live1) qn1 = a.qn[a.q_row0 + row0 + r1];
     }
     Rows R;  // this warp's 16 rows' lists
+    if constexpr (BlockShape<Rows>::lists > 0) R.bind(lists, warp);
     R.init();
     float* cnw = cn_s + wg * kBN;
     const uint32_t ring_a = smem_u32(ring);
@@ -516,7 +653,7 @@ __global__ void __launch_bounds__(kThreads, 1)
         wgmma_fence();
         // A: this warpgroup's 64 rows of the query box (8-row groups of 1 KB);
         // B: the corpus box
-        const uint32_t qa = ring_a + s * kStageBytes + wg * (kBoxBytes / 2), ca = ring_a + s * kStageBytes + kBoxBytes;
+        const uint32_t qa = ring_a + s * STAGE + wg * (kBoxBytes / 2), ca = ring_a + s * STAGE + QBOX;
 #pragma unroll
         for (int kk = 0; kk < kBoxK / 16; ++kk)
           wgmma_m64n128k16(acc, sw128_desc(qa + kk * 32), sw128_desc(ca + kk * 32), (b | kk) != 0);
@@ -600,6 +737,46 @@ __global__ void __launch_bounds__(kMergeThreads) topk_merge(const float* __restr
   }
 }
 
+// The same fold for 64 < k <= kMaxK: each warp's list in shared memory.
+__global__ void __launch_bounds__(kMergeThreads) topk_merge_wide(const float* __restrict__ pv,
+                                                                 const int* __restrict__ pi,
+                                                                 float* __restrict__ ov, int* __restrict__ oi,
+                                                                 int rows, int splits, int k) {
+  __shared__ float sv[kMergeThreads / 32][kMaxK];
+  __shared__ int si[kMergeThreads / 32][kMaxK];
+  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
+  const int r = blockIdx.x * (kMergeThreads / 32) + w;
+  if (r >= rows) return;  // whole warp; no block-wide barrier below
+  float* v = sv[w];
+  int* id = si[w];
+  for (int q = lane; q < kMaxK; q += 32) { v[q] = kInf; id[q] = kEmptyId; }
+  float tv = kInf;
+  int ti = kEmptyId;
+  const int n = splits * k;
+  const size_t base = (size_t)r * n;
+  for (int t0 = 0; t0 < n; t0 += 32) {
+    const int t = t0 + lane;
+    float c = kInf;
+    int cid = kEmptyId;
+    if (t < n && pi[base + t] >= 0) {
+      c = pv[base + t];
+      cid = pi[base + t];
+    }
+    unsigned m = __ballot_sync(0xffffffffu, c < kInf && lex_less(c, cid, tv, ti));
+    while (m) {
+      const int src = __ffs(m) - 1;
+      m &= m - 1;
+      const float cv = __shfl_sync(0xffffffffu, c, src);
+      const int ci = __shfl_sync(0xffffffffu, cid, src);
+      if (lex_less(cv, ci, tv, ti)) slist_insert(v, id, k, cv, ci, tv, ti);  // the bar rises as the list fills
+    }
+  }
+  for (int q = lane; q < k; q += 32) {
+    ov[(size_t)r * k + q] = v[q];
+    oi[(size_t)r * k + q] = id[q] == kEmptyId ? -1 : id[q];
+  }
+}
+
 // ---------------------------------------------------------------------------
 // Host side
 
@@ -621,13 +798,13 @@ static EncodeTiledFn encode_tiled() {
 }
 
 // Map of a row-major bf16 [rows, d] matrix read in boxes of 64 features x
-// 128 rows, 128-byte swizzle, zero fill out of bounds.
-static bool make_map(CUtensorMap* map, const void* base, int rows, int d) {
+// box_rows rows, 128-byte swizzle, zero fill out of bounds.
+static bool make_map(CUtensorMap* map, const void* base, int rows, int d, int box_rows) {
   EncodeTiledFn fn = encode_tiled();
   if (!fn) return false;
   const cuuint64_t dims[2] = {(cuuint64_t)d, (cuuint64_t)rows};
   const cuuint64_t strides[1] = {(cuuint64_t)d * 2};
-  const cuuint32_t box[2] = {(cuuint32_t)kBoxK, 128};
+  const cuuint32_t box[2] = {(cuuint32_t)kBoxK, (cuuint32_t)box_rows};
   const cuuint32_t elem[2] = {1, 1};
   return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(base), dims, strides, box, elem,
             CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
@@ -644,12 +821,13 @@ static bool bf16_rows_ok(const void* base, int d) {
 template <class Rows>
 static void launch_tiles(const CUtensorMap& qmap, const CUtensorMap& cmap, const TopkArgs& a, int row_blocks,
                          int col_splits, cudaStream_t stream) {
+  using B = BlockShape<Rows>;
   static bool attr_set = false;
   if (!attr_set) {
-    cudaFuncSetAttribute(topk_tiles<Rows>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kSmemBytes);
+    cudaFuncSetAttribute(topk_tiles<Rows>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)B::smem);
     attr_set = true;
   }
-  topk_tiles<Rows><<<dim3(col_splits, row_blocks), kThreads, kSmemBytes, stream>>>(qmap, cmap, a);
+  topk_tiles<Rows><<<dim3(col_splits, row_blocks), 128 * (B::warpgroups + 1), B::smem, stream>>>(qmap, cmap, a);
 }
 
 // Checks the plan of ops/tile_plan.py, launches the tile kernel and, with
@@ -658,27 +836,34 @@ static void launch_tiles(const CUtensorMap& qmap, const CUtensorMap& cmap, const
 static int topk_launch(const void* qbase, int q_rows_total, const void* cbase, int c_rows, int d, TopkArgs a,
                        int row_blocks, int col_splits, float* pv, int* pi, float* ov, int* oi,
                        cudaStream_t stream) {
-  if (a.k < 1 || a.k > kMaxK || a.rows < 1 || row_blocks != (a.rows + kBM - 1) / kBM ||
+  const bool wide = a.k > kRegMaxK;
+  const int bm = wide ? kWideBM : kBM;  // query rows per block
+  if (a.k < 1 || a.k > kMaxK || a.rows < 1 || row_blocks != (a.rows + bm - 1) / bm ||
       col_splits < 1 || (col_splits > 1 && col_splits > (a.n_cols + kBN - 1) / kBN) ||
       (col_splits > 1 && (!pv || !pi)) || !bf16_rows_ok(qbase, d) || !bf16_rows_ok(cbase, d))
     return (int)cudaErrorInvalidValue;
   CUtensorMap qmap, cmap;
-  if (!make_map(&qmap, qbase, q_rows_total, d) || !make_map(&cmap, cbase, c_rows, d))
+  if (!make_map(&qmap, qbase, q_rows_total, d, bm) || !make_map(&cmap, cbase, c_rows, d, kBN))
     return (int)cudaErrorInvalidValue;
   a.kb = feature_boxes(d);
   a.ov = col_splits > 1 ? pv : ov;
   a.oi = col_splits > 1 ? pi : oi;
-  // quad-owned lists up to k = 16 (eight rows insert at once), warp-wide above
+  // quad-owned lists up to k = 16 (eight rows insert at once), warp-wide in
+  // registers up to 64, warp-wide in shared memory above
   if (a.k <= 4)
     launch_tiles<QuadRows<1>>(qmap, cmap, a, row_blocks, col_splits, stream);
   else if (a.k <= 16)
     launch_tiles<QuadRows<4>>(qmap, cmap, a, row_blocks, col_splits, stream);
-  else
+  else if (!wide)
     launch_tiles<WarpRows>(qmap, cmap, a, row_blocks, col_splits, stream);
+  else
+    launch_tiles<SmemRows>(qmap, cmap, a, row_blocks, col_splits, stream);
   if (col_splits > 1) {
-    const int warps = kMergeThreads / 32;
-    topk_merge<<<(a.rows + warps - 1) / warps, kMergeThreads, 0, stream>>>(
-        pv, pi, ov, oi, a.rows, col_splits, a.k);
+    const int warps = kMergeThreads / 32, blocks = (a.rows + warps - 1) / warps;
+    if (wide)
+      topk_merge_wide<<<blocks, kMergeThreads, 0, stream>>>(pv, pi, ov, oi, a.rows, col_splits, a.k);
+    else
+      topk_merge<<<blocks, kMergeThreads, 0, stream>>>(pv, pi, ov, oi, a.rows, col_splits, a.k);
   }
   return (int)cudaGetLastError();
 }

@@ -1,27 +1,37 @@
-"""Batched graph beam search with PQ-steered traversal and exact rerank.
+"""Batched graph beam search: stored, PQ-steered and recompute traversals.
 
 Counterpart of the JAX package's ``ops/beam_search.py``. There the search is
 one ``lax.while_loop`` per query, vmapped over the batch; here it is one
 Python loop over hops that advances the whole batch at once. A lane that has
-converged is frozen: every state update (pool, flags, visited bitmap) is
-masked by a per-lane done flag, which is what ``vmap(while_loop)`` does, and
-the loop ends when every lane is done or ``max_steps`` is reached. The stop
-rule is the JAX package's: a lane is done when its best unexpanded candidate
-is worse than the WORST entry of its L-pool.
+converged is frozen: every state update (pool, flags, visited bitmap, step
+and exact-distance counts) is masked by a per-lane done flag, which is what
+``vmap(while_loop)`` does, and the loop ends when every lane is done or
+``max_steps`` is reached. The stop rule is the JAX package's: a lane is done
+when its best unexpanded candidate is worse than the WORST entry of its
+L-pool.
 
-Traversal distance modes ported so far:
-  * ``stored`` exact distances from a device-resident embedding matrix;
-  * ``pq``     PQ-ADC distances, combined with ``rerank`` for the final exact
-               pass (the diskann tier), where the rerank re-encodes the pool
-               head from the token store (``rerank_source="recompute"``) or
-               reads stored embeddings.
+Traversal distance modes:
+  * ``stored``    exact distances from a device-resident embedding matrix;
+  * ``recompute`` exact distances by re-encoding the candidates' passages
+                  from the token store (the hnsw tier). With ``prune_keep``
+                  a PQ-ADC screen picks which candidates are re-encoded
+                  (``prune_strategy`` global / local / proportional); the
+                  others keep their ADC estimate in the same pool;
+  * ``pq``        PQ-ADC distances, combined with ``rerank`` for the final
+                  exact pass (the diskann tier), where the rerank re-encodes
+                  the pool head from the token store
+                  (``rerank_source="recompute"``) or reads stored embeddings.
+Re-encoding gathers only the rows that need an exact distance (valid, kept
+by the screen, in a lane still running) and encodes them in
+``RECOMPUTE_ROWS`` chunks; the JAX package pays for every slot of every
+lane. Each row's encoding is independent, so the distances are the same.
 
 Numerics kept on purpose: search distances are f32 (bf16 rounding flips
 near-ties); every ordering is a stable sort, so ties go to the lower
-position as ``lax.sort`` / ``lax.top_k`` order them; the visited set is a
-bitmap of 32-bit words (held in int64) updated by scatter-add of bits that
-are provably unset — exact only because ``_dedup_mask`` first removes
-duplicate ids within a hop.
+position as ``lax.sort`` / ``lax.top_k`` / ``jnp.argsort`` order them; the
+visited set is a bitmap of 32-bit words (held in int64) updated by
+scatter-add of bits that are provably unset — exact only because
+``_dedup_mask`` first removes duplicate ids within a hop.
 """
 
 from __future__ import annotations
@@ -62,7 +72,15 @@ class BeamConfig:
     complexity: int = 64  # candidate pool size L (efSearch parity)
     beam: int = 4  # nodes expanded per hop (beam_width parity)
     max_steps: int = 64
-    traversal: str = "stored"  # stored | pq
+    traversal: str = "stored"  # stored | recompute | pq
+    prune_keep: int = 0  # recompute: > 0 PQ-screens the candidates, re-encodes at most this many per hop
+    # which candidates the screen keeps:
+    #   global        the best prune_keep by ADC over the whole expansion set
+    #   local         per source node: candidates ranked within their source
+    #                 node's neighbour row, best ranks first
+    #   proportional  global, with the budget scaled per lane by the share of
+    #                 valid (fresh) candidates this hop
+    prune_strategy: str = "global"
     rerank: int = 0  # >0: final exact pass over the top-``rerank`` pool entries
     rerank_source: str = "recompute"  # recompute | stored
     n_entries: int = 16  # starting points taken from the entry pool
@@ -82,40 +100,76 @@ def _metric_dists(q: torch.Tensor, e: torch.Tensor, metric: str) -> torch.Tensor
     return q.square().sum(-1, keepdim=True) + (en[None, :] if e.dim() == 2 else en) - 2.0 * dots
 
 
-def _recompute_embeddings(g: GraphData, ids: torch.Tensor, cfg: BeamConfig, enc_params) -> torch.Tensor:
-    """Re-encode passages for node ``ids`` [B, C] from the token store ->
-    [B, C, D] f32."""
-    b, c = ids.shape
-    safe = ids.clamp(0, g.tokens.shape[0] - 1).reshape(-1)
-    toks = g.tokens[safe]
+def _recompute_embeddings(g: GraphData, ids: torch.Tensor, need: torch.Tensor, cfg: BeamConfig,
+                          enc_params) -> torch.Tensor:
+    """Re-encode the passages of node ``ids`` [B, C] where ``need`` from the
+    token store -> [B, C, D] f32 (zeros where not needed)."""
+    flat = need.reshape(-1).nonzero()[:, 0]
+    sel = ids.reshape(-1)[flat].clamp(0, g.tokens.shape[0] - 1)
+    toks = g.tokens[sel]
     t = toks.shape[1]
-    mask = (torch.arange(t, device=ids.device)[None, :] < g.lengths[safe][:, None]).to(torch.int32)
-    e = torch.cat([encode_tokens(enc_params, toks[s : s + RECOMPUTE_ROWS], mask[s : s + RECOMPUTE_ROWS], cfg.enc_cfg)
-                   for s in range(0, safe.shape[0], RECOMPUTE_ROWS)])
+    mask = (torch.arange(t, device=ids.device)[None, :] < g.lengths[sel][:, None]).to(torch.int32)
+    parts = [encode_tokens(enc_params, toks[s : s + RECOMPUTE_ROWS], mask[s : s + RECOMPUTE_ROWS], cfg.enc_cfg)
+             for s in range(0, sel.shape[0], RECOMPUTE_ROWS)]
+    dim = parts[0].shape[-1] if parts else cfg.enc_cfg.dim
+    e = torch.cat(parts) if parts else torch.zeros((0, dim), device=ids.device)
     if cfg.normalize and not cfg.enc_cfg.normalize:
         e = e / e.norm(dim=-1, keepdim=True).clamp_min(1e-12)
-    return e.reshape(b, c, -1)
+    out = torch.zeros((ids.numel(), dim), dtype=torch.float32, device=ids.device)
+    out[flat] = e.float()
+    return out.reshape(*ids.shape, dim)
 
 
 def _exact_dists(q, g: GraphData, ids, valid, cfg: BeamConfig, enc_params, source: str):
     if source == "stored":
         e = g.emb[ids.clamp(0, g.emb.shape[0] - 1)]
     else:
-        e = _recompute_embeddings(g, ids, cfg, enc_params)
+        e = _recompute_embeddings(g, ids, valid, cfg, enc_params)
     d = _metric_dists(q, e, cfg.metric)
     return torch.where(valid, d, torch.full_like(d, INF))
 
 
-def _traversal_dists(q, g: GraphData, ids, valid, lut, cfg: BeamConfig, enc_params):
-    """Traversal distances [B, C] for candidate ``ids`` [B, C]."""
+def _adc(g: GraphData, ids, valid, lut):
+    ad = adc_distances(g.codes[ids.clamp(0, g.codes.shape[0] - 1)], lut)
+    return torch.where(valid, ad, torch.full_like(ad, INF))
+
+
+def _traversal_dists(q, g: GraphData, ids, valid, lut, cfg: BeamConfig, enc_params, per_source: int = 0):
+    """-> (dists [B, C], n_exact i64[B]): traversal distances for candidate
+    ``ids`` [B, C] and how many of each lane's received an exact distance.
+
+    ``per_source`` > 0: the ids have [per_source, R] row structure per lane
+    (a hop's expansion), which the ``local`` strategy ranks within; 0 (entry
+    seeding) selects globally."""
+    nv = valid.sum(dim=1)
     if cfg.traversal == "stored":
-        return _exact_dists(q, g, ids, valid, cfg, enc_params, "stored")
+        return _exact_dists(q, g, ids, valid, cfg, enc_params, "stored"), nv
     if cfg.traversal == "pq":
-        ad = adc_distances(g.codes[ids.clamp(0, g.codes.shape[0] - 1)], lut)
-        return torch.where(valid, ad, torch.full_like(ad, INF))
-    raise NotImplementedError(
-        f"traversal {cfg.traversal!r} is not ported to leann_torch yet (ROADMAP.md, left for "
-        "later #1: the recompute traversal with prune_keep that the hnsw backend needs)")
+        return _adc(g, ids, valid, lut), torch.zeros_like(nv)
+    if cfg.traversal != "recompute":
+        raise ValueError(f"unknown traversal {cfg.traversal!r}")
+    b, f = ids.shape
+    keep = cfg.prune_keep
+    if not (keep and keep < f):
+        return _exact_dists(q, g, ids, valid, cfg, enc_params, "recompute"), nv
+    ad = _adc(g, ids, valid, lut)
+    sel = ad
+    if cfg.prune_strategy == "local" and per_source > 0:
+        # rank each candidate within its source node's row (double stable
+        # argsort): slots go round-robin over the source nodes
+        adm = ad.reshape(b, per_source, f // per_source)
+        rank = torch.argsort(torch.argsort(adm, dim=2, stable=True), dim=2, stable=True).reshape(b, f)
+        sel = torch.where(ad >= BIG, torch.full_like(ad, INF), rank.float())
+    keep_pos = torch.sort(sel, dim=1, stable=True).indices[:, :keep]  # lax.top_k(-sel): lower position on ties
+    keep_ids = ids.gather(1, keep_pos)
+    keep_valid = valid.gather(1, keep_pos)
+    if cfg.prune_strategy == "proportional":
+        # the budget follows each lane's count of fresh candidates this hop
+        budget = ((keep * nv + f - 1) // f).clamp(1, keep)
+        keep_valid = keep_valid & (torch.arange(keep, device=ids.device)[None, :] < budget[:, None])
+    ed = _exact_dists(q, g, keep_ids, keep_valid, cfg, enc_params, "recompute")
+    ed = torch.where(keep_valid, ed, ad.gather(1, keep_pos))  # the others keep their ADC estimate
+    return ad.scatter(1, keep_pos, ed), keep_valid.sum(dim=1)
 
 
 def _merge_pool(ids_a, dist_a, flag_a, ids_b, dist_b, flag_b, l: int):
@@ -143,14 +197,19 @@ def _mark_visited(visited: torch.Tensor, ids: torch.Tensor, new: torch.Tensor) -
     visited.scatter_add_(1, ids >> 5, torch.where(new, bit, torch.zeros_like(bit)))
 
 
-def _search_batch(q: torch.Tensor, g: GraphData, cfg: BeamConfig, enc_params):
-    """q [B, D] f32 -> (labels i64[B, k], dists f32[B, k])."""
+@torch.no_grad()
+def beam_search_batch(q: torch.Tensor, g: GraphData, cfg: BeamConfig, enc_params=None):
+    """q [B, D] f32 -> (labels i64[B, k], dists f32[B, k], steps i64[B],
+    n_exact i64[B]): per lane the hops it ran and its exact-distance
+    evaluations, the recompute count the pruning strategies trade against
+    recall."""
     b = q.shape[0]
     dev = q.device
     n, r = g.neighbors.shape
     l = cfg.complexity
     f = cfg.beam * r
-    lut = adc_lut(q, g.codebooks, cfg.metric) if cfg.traversal == "pq" else None
+    screened = cfg.traversal == "pq" or (cfg.traversal == "recompute" and cfg.prune_keep)
+    lut = adc_lut(q, g.codebooks, cfg.metric) if screened else None
 
     # ---- init: query-aware entry seeding from the entry pool -------------
     pool = g.entry_ids
@@ -172,7 +231,9 @@ def _search_batch(q: torch.Tensor, g: GraphData, cfg: BeamConfig, enc_params):
         e_ids = pool[:ne][None].expand(b, ne)
     visited = torch.zeros((b, (n + 31) // 32), dtype=torch.int64, device=dev)
     _mark_visited(visited, e_ids, torch.ones_like(e_ids, dtype=torch.bool))  # entry ids are unique
-    e_dist = _traversal_dists(q, g, e_ids, torch.ones_like(e_ids, dtype=torch.bool), lut, cfg, enc_params)
+    # per_source = 0: the seeds are screened globally whatever the strategy
+    e_dist, n_exact = _traversal_dists(q, g, e_ids, torch.ones_like(e_ids, dtype=torch.bool), lut, cfg,
+                                       enc_params)
     pad = l - ne
     cand_ids = torch.cat([e_ids, torch.full((b, pad), -1, dtype=torch.int64, device=dev)], dim=1)
     cand_dist = torch.cat([e_dist, torch.full((b, pad), INF, device=dev)], dim=1)
@@ -183,8 +244,10 @@ def _search_batch(q: torch.Tensor, g: GraphData, cfg: BeamConfig, enc_params):
 
     rows = torch.arange(b, device=dev)[:, None]
     done = torch.zeros((b,), dtype=torch.bool, device=dev)
+    steps = torch.zeros((b,), dtype=torch.int64, device=dev)
     for _ in range(cfg.max_steps):
         active = ~done
+        steps += active
         # 1. select the `beam` closest unexpanded candidates
         sel_score = torch.where(cand_flag, torch.full_like(cand_dist, INF), cand_dist)
         sel_val, pos = torch.sort(sel_score, dim=1, stable=True)
@@ -203,8 +266,10 @@ def _search_batch(q: torch.Tensor, g: GraphData, cfg: BeamConfig, enc_params):
         bit = torch.ones_like(safe) << (safe & 31)
         is_new = ((visited.gather(1, safe >> 5) & bit) == 0) & valid & active[:, None]
         _mark_visited(visited, safe, is_new)
-        # 5. distances for fresh candidates
-        new_dist = _traversal_dists(q, g, safe, is_new, lut, cfg, enc_params)
+        # 5. distances for fresh candidates (none in a frozen lane: it
+        # counts no exact distance)
+        new_dist, hop_exact = _traversal_dists(q, g, safe, is_new, lut, cfg, enc_params, per_source=cfg.beam)
+        n_exact += hop_exact
         new_ids = torch.where(is_new, nbrs, torch.full_like(nbrs, -1))
         # 6. merge into the sorted pool
         m_ids, m_dist, m_flag = _merge_pool(cand_ids, cand_dist, flag, new_ids, new_dist, ~is_new, l)
@@ -227,8 +292,9 @@ def _search_batch(q: torch.Tensor, g: GraphData, cfg: BeamConfig, enc_params):
         top_valid = top_ids >= 0
         exact = _exact_dists(q, g, top_ids.clamp(0, n - 1), top_valid, cfg, enc_params, cfg.rerank_source)
         exact, order = torch.sort(exact, dim=1, stable=True)
-        return top_ids.gather(1, order)[:, : cfg.k], exact[:, : cfg.k]
-    return cand_ids[:, : cfg.k], cand_dist[:, : cfg.k]
+        n_exact = n_exact + top_valid.sum(dim=1)
+        return top_ids.gather(1, order)[:, : cfg.k], exact[:, : cfg.k], steps, n_exact
+    return cand_ids[:, : cfg.k], cand_dist[:, : cfg.k], steps, n_exact
 
 
 def pack_results(labels: torch.Tensor, dists: torch.Tensor) -> torch.Tensor:
@@ -247,14 +313,22 @@ def unpack_results(packed) -> tuple:
 @torch.no_grad()
 def beam_search_batch_packed(q: torch.Tensor, g: GraphData, cfg: BeamConfig, enc_params=None) -> torch.Tensor:
     """q [B, D] -> packed i32[B, 2k] (see :func:`pack_results`)."""
-    return pack_results(*_search_batch(q, g, cfg, enc_params))
+    return pack_results(*beam_search_batch(q, g, cfg, enc_params)[:2])
+
+
+@torch.no_grad()
+def beam_search_text_batch(q_ids: torch.Tensor, q_mask: torch.Tensor, g: GraphData, cfg: BeamConfig,
+                           enc_params):
+    """Query encode + search: token ids in, the four outputs of
+    :func:`beam_search_batch` out."""
+    q = encode_tokens(enc_params, q_ids, q_mask, cfg.enc_cfg)
+    if cfg.normalize and not cfg.enc_cfg.normalize:
+        q = q / q.norm(dim=-1, keepdim=True).clamp_min(1e-12)
+    return beam_search_batch(q, g, cfg, enc_params)
 
 
 @torch.no_grad()
 def beam_search_text_batch_packed(q_ids: torch.Tensor, q_mask: torch.Tensor, g: GraphData, cfg: BeamConfig,
                                   enc_params) -> torch.Tensor:
     """Query encode + search: token ids in, packed i32[B, 2k] out."""
-    q = encode_tokens(enc_params, q_ids, q_mask, cfg.enc_cfg)
-    if cfg.normalize and not cfg.enc_cfg.normalize:
-        q = q / q.norm(dim=-1, keepdim=True).clamp_min(1e-12)
-    return pack_results(*_search_batch(q, g, cfg, enc_params))
+    return pack_results(*beam_search_text_batch(q_ids, q_mask, g, cfg, enc_params)[:2])

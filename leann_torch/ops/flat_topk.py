@@ -17,9 +17,8 @@ from typing import Optional
 import torch
 
 from .distance import FEATURE_ALIGN, flat_search
-from .tile_plan import multiprocessors, plan_launch
+from .tile_plan import check_k, multiprocessors, plan_launch
 
-MAX_K = 64
 
 
 _launch = None
@@ -59,8 +58,7 @@ def flat_topk(q: torch.Tensor, e: torch.Tensor, en: Optional[torch.Tensor], vali
     if q.shape[1] % FEATURE_ALIGN or e.data_ptr() % 16:
         raise ValueError(f"flat_topk: D={q.shape[1]} must be a multiple of {FEATURE_ALIGN} "
                          "(distance.pad_features) and e 16-byte aligned")
-    if not 1 <= k <= MAX_K:
-        raise ValueError(f"flat_topk: k={k} outside [1, {MAX_K}]")
+    check_k(k, "flat_topk")
     b, d = q.shape
     n = e.shape[0]
     valid_n = max(0, min(int(valid_n), n))

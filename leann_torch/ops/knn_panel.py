@@ -19,9 +19,8 @@ from typing import Optional
 import torch
 
 from .distance import FEATURE_ALIGN, INF, pad_features, stable_topk_smallest
-from .tile_plan import multiprocessors, plan_launch
+from .tile_plan import check_k, multiprocessors, plan_launch
 
-MAX_K = 64
 # query rows per [rows, N] distance block of the plain version
 PLAIN_ROWS = 1024
 
@@ -93,8 +92,7 @@ def knn_panel(ebf: torch.Tensor, norms: torch.Tensor, k: int, q_start: int = 0,
     if d % FEATURE_ALIGN or ebf.data_ptr() % 16:
         raise ValueError(f"knn_panel: D={d} must be a multiple of {FEATURE_ALIGN} "
                          "(panel_inputs) and ebf 16-byte aligned")
-    if not 1 <= k <= MAX_K:
-        raise ValueError(f"knn_panel: k={k} outside [1, {MAX_K}]")
+    check_k(k, "knn_panel")
     dev = ebf.device
     plan = plan_launch(q_count, n_real, k, d, multiprocessors(dev))
     pv = pi = None

@@ -3,9 +3,11 @@
 Both kernels run one core: a block takes 128 query rows (64 per consumer
 warpgroup) and a range of corpus columns, walks the range in 128-column
 tiles whose 64-feature boxes a producer warp streams by TMA into a ring of
-shared-memory stages, and keeps each row's running top-k in registers. The
-block's shared memory is fixed at compile time, whatever D and k
-(``kSmemBytes``, held to the card's limit by a ``static_assert`` there).
+shared-memory stages, and keeps each row's running top-k in registers.
+Above k = 64 the lists move to shared memory and a block takes 64 query
+rows (one consumer warpgroup). The block's shared memory is fixed at
+compile time per instance, whatever D and k (``kSmemBytes`` and
+``kWideSmemBytes``, held to the card's limit by ``static_assert``s there).
 This module decides the grid with pure functions, so the CPU tests reach it.
 """
 
@@ -17,14 +19,29 @@ from functools import lru_cache
 import torch
 
 BLOCK_ROWS = 128     # query rows per block: one wgmma M of 64 per consumer warpgroup
+WIDE_BLOCK_ROWS = 64  # above REG_MAX_K: one consumer warpgroup, lists in shared memory
 TILE_COLS = 128      # corpus rows per tile (one wgmma N)
-MAX_K = 64           # two list slots per lane of a warp
+REG_MAX_K = 64       # lists in registers: two slots per lane of a warp
+MAX_K = 256          # lists in shared memory; past it see ROADMAP.md section C
 
 
 @dataclass(frozen=True)
 class LaunchPlan:
     row_blocks: int  # blocks along the query rows (grid.y)
     col_splits: int  # blocks along the corpus columns (grid.x); > 1 adds a merge launch
+    block_rows: int = BLOCK_ROWS  # query rows per block
+
+
+def block_rows(k: int) -> int:
+    """Query rows per block of the instance that serves ``k``."""
+    return BLOCK_ROWS if k <= REG_MAX_K else WIDE_BLOCK_ROWS
+
+
+def check_k(k: int, who: str) -> None:
+    """Raise where the kernels take no list of ``k`` entries."""
+    if not 1 <= k <= MAX_K:
+        raise ValueError(f"{who}: k={k} outside [1, {MAX_K}] (ROADMAP.md section C: the kernels take "
+                         f"k <= {MAX_K}; the JAX package takes any k)")
 
 
 def split_columns(n_cols: int, splits: int, split: int):
@@ -51,13 +68,13 @@ def plan_launch(rows: int, n_cols: int, k: int, d: int, sms: int) -> LaunchPlan:
     features (a multiple of 16) on a card with ``sms`` multiprocessors."""
     if rows < 1 or n_cols < 0 or sms < 1:
         raise ValueError(f"plan_launch: rows={rows}, n_cols={n_cols}, sms={sms}")
-    if not 1 <= k <= MAX_K:
-        raise ValueError(f"plan_launch: k={k} outside [1, {MAX_K}]")
+    check_k(k, "plan_launch")
     if d < 1 or d % 16:
         raise ValueError(f"plan_launch: D={d} must be a positive multiple of 16")
-    row_blocks = -(-rows // BLOCK_ROWS)
+    bm = block_rows(k)
+    row_blocks = -(-rows // bm)
     n_tiles = max(1, -(-n_cols // TILE_COLS))
-    return LaunchPlan(row_blocks, _col_splits(row_blocks, n_tiles, sms))
+    return LaunchPlan(row_blocks, _col_splits(row_blocks, n_tiles, sms), bm)
 
 
 @lru_cache(maxsize=None)

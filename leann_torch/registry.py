@@ -30,12 +30,8 @@ BACKEND_REGISTRY: Dict[str, "Type[LeannBackendFactoryInterface]"] = {}
 # name -> module path imported on demand by autodiscover_backends()
 _BUILTIN_BACKENDS = {
     "flat": "leann_torch.backends.flat",
+    "hnsw": "leann_torch.backends.hnsw",
     "diskann": "leann_torch.backends.diskann",
-}
-
-# backends of the JAX package this port does not carry yet -> ROADMAP.md item
-_NOT_PORTED = {
-    "hnsw": "ROADMAP.md, left for later #1 (HNSW backend)",
 }
 
 
@@ -70,9 +66,6 @@ def get_registered_backends() -> List[str]:
 
 
 def get_backend(name: str) -> "Type[LeannBackendFactoryInterface]":
-    if name in _NOT_PORTED:
-        raise NotImplementedError(
-            f"backend {name!r} is not ported to leann_torch yet: {_NOT_PORTED[name]}")
     autodiscover_backends()
     if name not in BACKEND_REGISTRY:
         raise ValueError(

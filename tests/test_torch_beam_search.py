@@ -96,18 +96,20 @@ def test_batch_lanes_freeze_independently(built):
     """Lanes converge after different hop counts; a converged lane must not
     change while the others run on (vmap(while_loop) semantics), so a batch
     gives each query the result it gets alone."""
-    from leann_torch.ops.beam_search import _search_batch
+    from leann_torch.ops.beam_search import beam_search_batch
 
     prefix, _, queries = built
     _, ts = _searchers(prefix)
     q = torch.from_numpy(_unit(ts._encoder().encode(queries[:8])))
     cfg, enc_params = ts._make_cfg(3, complexity=32, beam_width=4)
     g = ts._graph_data()
-    ids_b, d_b = _search_batch(q, g, cfg, enc_params)
+    ids_b, d_b, steps_b, exact_b = beam_search_batch(q, g, cfg, enc_params)
+    assert len(set(steps_b.tolist())) > 1  # the lanes do stop at different hops
     for i in range(8):
-        ids_1, d_1 = _search_batch(q[i : i + 1], g, cfg, enc_params)
+        ids_1, d_1, steps_1, exact_1 = beam_search_batch(q[i : i + 1], g, cfg, enc_params)
         assert ids_1[0].tolist() == ids_b[i].tolist()
         np.testing.assert_allclose(d_1[0].numpy(), d_b[i].numpy(), rtol=1e-5, atol=1e-6)
+        assert (int(steps_1[0]), int(exact_1[0])) == (int(steps_b[i]), int(exact_b[i]))
 
 
 def test_metric_dists_stay_f32_on_bf16_rows():

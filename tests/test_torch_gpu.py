@@ -42,7 +42,7 @@ def _flat_inputs(seed, n, d, b, metric):
 
 @pytest.mark.parametrize("b,n", [(1, 5000), (64, 4999), (65, 5000), (130, 4999)])
 @pytest.mark.parametrize("d", [33, 384, 400, 784])
-@pytest.mark.parametrize("k", [1, 3, 5, 16, 64])
+@pytest.mark.parametrize("k", [1, 3, 5, 16, 64, 65, 128, 256])
 @pytest.mark.parametrize("metric", ["l2", "mips", "cosine"])
 def test_flat_topk_matches_plain(cuda, metric, k, d, b, n):
     e, q = _flat_inputs(3, n, d, b, metric)
@@ -66,13 +66,15 @@ def test_flat_topk_fills_past_valid_rows(cuda):
 
 
 # n_real = N is the build's own call: the last tile (rows 2944 .. 3071) runs
-# past the corpus and TMA fills it with zeros; n_real = 2900 masks real rows
+# past the corpus and TMA fills it with zeros; n_real = 2900 masks real rows.
+# k = 64 is the diskann build's list, 128 the HNSW build's (shared-memory lists)
 @pytest.mark.parametrize("n_real", [2900, 3000])
 @pytest.mark.parametrize("grid", ["split", "unsplit"])
 @pytest.mark.parametrize("q_count", [1, 129, 1000])
 @pytest.mark.parametrize("d", [384, 385, 784])
-def test_knn_panel_matches_plain(cuda, monkeypatch, d, q_count, grid, n_real):
-    n, q_start, k = 3000, 100, 64
+@pytest.mark.parametrize("k", [64, 65, 128, 256])
+def test_knn_panel_matches_plain(cuda, monkeypatch, k, d, q_count, grid, n_real):
+    n, q_start = 3000, 100
     emb = torch.from_numpy(np.random.default_rng(7).standard_normal((n, d)).astype(np.float32))
     ebf, norms = panel_inputs(emb.to(cuda))
     if grid == "unsplit":  # as if on a one-SM card: the row blocks alone fill it
@@ -103,39 +105,42 @@ def _assert_lower_twin_first(ids, dists, half, own=None):
                 assert row_i[p] > row_i[p - 1]
 
 
+@pytest.mark.parametrize("k", [8, 128])
 @pytest.mark.parametrize("metric", ["l2", "mips"])
-def test_flat_topk_ties_go_to_the_lower_id(cuda, metric):
+def test_flat_topk_ties_go_to_the_lower_id(cuda, metric, k):
     half, d = 2000, 384
     e, q = _flat_inputs(5, half, d, 70, metric)
     e = torch.cat([e, e])  # every corpus row twice: exact ties
-    ids, dists = flat_topk(q.to(cuda), e.to(torch.bfloat16).to(cuda), e.square().sum(1).to(cuda), 2 * half, 8,
+    ids, dists = flat_topk(q.to(cuda), e.to(torch.bfloat16).to(cuda), e.square().sum(1).to(cuda), 2 * half, k,
                            metric)
-    pi, _ = flat_search(e.to(torch.bfloat16), q, 2 * half, 8, metric, en=e.square().sum(1))
+    pi, _ = flat_search(e.to(torch.bfloat16), q, 2 * half, k, metric, en=e.square().sum(1))
     _assert_lower_twin_first(ids.cpu().numpy(), dists.cpu().numpy(), half)
     assert _overlap(ids.cpu().numpy(), pi.numpy()) >= 0.95
 
 
-def test_knn_panel_ties_go_to_the_lower_id(cuda):
+@pytest.mark.parametrize("k", [16, 128])
+def test_knn_panel_ties_go_to_the_lower_id(cuda, k):
     half = 1500
     emb = torch.from_numpy(np.random.default_rng(9).standard_normal((half, 384)).astype(np.float32))
     ebf, norms = panel_inputs(torch.cat([emb, emb]).to(cuda))
-    ids, dists = knn_panel(ebf, norms, 16, q_start=0, q_count=2 * half)
+    ids, dists = knn_panel(ebf, norms, k, q_start=0, q_count=2 * half)
     ids, dists = ids.cpu().numpy(), dists.cpu().numpy()
     _assert_lower_twin_first(ids, dists, half, own=list(range(2 * half)))
     # the twin is at distance ~0 and comes first; the self row never appears
     assert (ids[:half, 0] == np.arange(half) + half).all() and (ids[half:, 0] == np.arange(half)).all()
 
 
-def test_kernels_are_deterministic(cuda):
+@pytest.mark.parametrize("k_flat,k_knn", [(3, 64), (128, 128)])
+def test_kernels_are_deterministic(cuda, k_flat, k_knn):
     e, q = _flat_inputs(6, 20000, 384, 64, "cosine")
     ebf = e.to(torch.bfloat16).to(cuda)
     qc = q.to(cuda)
-    a = flat_topk(qc, ebf, None, 20000, 3, "cosine")
-    b = flat_topk(qc, ebf, None, 20000, 3, "cosine")
+    a = flat_topk(qc, ebf, None, 20000, k_flat, "cosine")
+    b = flat_topk(qc, ebf, None, 20000, k_flat, "cosine")
     assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
     eb, norms = panel_inputs(e.to(cuda))
-    a = knn_panel(eb, norms, 64)
-    b = knn_panel(eb, norms, 64)
+    a = knn_panel(eb, norms, k_knn)
+    b = knn_panel(eb, norms, k_knn)
     assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
 
 
@@ -145,7 +150,7 @@ def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
     with pytest.raises(TypeError):
         flat_topk(q, e, e.square().sum(1), 100, 3, "l2")  # corpus must be bf16
     with pytest.raises(ValueError):
-        flat_topk(q, e.bfloat16(), e.square().sum(1), 100, 65, "l2")  # k > 64
+        flat_topk(q, e.bfloat16(), e.square().sum(1), 100, 257, "l2")  # k > 256
     with pytest.raises(ValueError):
         flat_topk(q.cpu(), e.bfloat16(), e.square().sum(1), 100, 3, "l2")  # mixed devices
     with pytest.raises(ValueError):
@@ -153,7 +158,7 @@ def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
     with pytest.raises(ValueError):
         knn_panel(e[:, :31].bfloat16().contiguous(), e.square().sum(1), 8)  # unpadded D
     ebf, norms = panel_inputs(e)
-    with pytest.raises(ValueError):
-        knn_panel(ebf, norms, 65)
+    with pytest.raises(ValueError, match="ROADMAP"):
+        knn_panel(ebf, norms, 257)
     with pytest.raises(ValueError):
         knn_panel(ebf, norms, 8, q_start=90, q_count=20)

@@ -1,6 +1,7 @@
 """Launch plan of leann_torch's two top-k kernels (ops/tile_plan.py): the
 grid covers every query row and every corpus column once, fills the card
-where the columns allow, and no width the port supports is refused."""
+where the columns allow, and no width or k <= 256 the port supports is
+refused."""
 
 import math
 import re
@@ -15,13 +16,15 @@ def _ranges(plan, n_cols):
     return [tp.split_columns(n_cols, plan.col_splits, s) for s in range(plan.col_splits)]
 
 
+@pytest.mark.parametrize("k", [64, 65, 128, 256])
 @pytest.mark.parametrize("sms", [1, 16, 132])
 @pytest.mark.parametrize("rows,n_cols", [(1, 5000), (64, 100_000), (65, 4900), (130, 4999), (1000, 2900),
                                          (1024, 99_000), (17_000, 100_000), (100_000, 100_000), (3, 100),
                                          (5, 0)])
-def test_plan_covers_rows_and_columns_once(rows, n_cols, sms):
-    plan = tp.plan_launch(rows, n_cols, 64, 384, sms)
-    assert (plan.row_blocks - 1) * tp.BLOCK_ROWS < rows <= plan.row_blocks * tp.BLOCK_ROWS
+def test_plan_covers_rows_and_columns_once(rows, n_cols, sms, k):
+    plan = tp.plan_launch(rows, n_cols, k, 384, sms)
+    assert plan.block_rows == (tp.BLOCK_ROWS if k <= 64 else tp.WIDE_BLOCK_ROWS)
+    assert (plan.row_blocks - 1) * plan.block_rows < rows <= plan.row_blocks * plan.block_rows
     assert all(lo % tp.TILE_COLS == 0 for lo, _ in _ranges(plan, n_cols))  # splits start on a tile
     spans = _ranges(plan, n_cols)
     covered = [c for lo, hi in spans for c in range(lo, hi)]
@@ -47,28 +50,34 @@ def test_main_path_shapes():
     # since every split refills its lists from empty
     small = tp.plan_launch(1024, 99_000, 64, 400, 132)
     assert (small.row_blocks, small.col_splits) == (8, 16)
+    # B2 at the HNSW build's own call (M = 32, efConstruction = 128: C = 128):
+    # 64-row blocks with lists in shared memory, enough of them for no split
+    hnsw = tp.plan_launch(100_000, 100_000, 128, 384, 132)
+    assert (hnsw.row_blocks, hnsw.col_splits, hnsw.block_rows) == (1563, 1, 64)
 
 
 _CORE = Path(tp.__file__).resolve().parent.parent / "csrc" / "topk_common.cuh"
 
 
-@pytest.mark.parametrize("k", [1, 2, 3, 16, 32, 63, 64])
+@pytest.mark.parametrize("k", [1, 2, 3, 16, 32, 63, 64, 65, 128, 256])
 def test_shared_memory_fits_every_width(k):
-    # the block's shared memory does not depend on D or k: nothing but the
-    # ring of stages is resident, and the kernel's source holds its one
-    # figure to the card's 227 KB at compile time
+    # the block's shared memory does not depend on D or k: the ring of
+    # stages (and above k = 64 the lists at their largest k) is resident,
+    # and the kernel's source holds each instance's figure to the card's
+    # 227 KB at compile time
     src = _CORE.read_text()
-    assert re.search(r"static_assert\(kSmemBytes <= 227 \* 1024", src)
-    assert not re.search(r"kSmemBytes\s*=.*\b(d|k|kb)\b", src)
+    for name in ("kSmemBytes", "kWideSmemBytes"):
+        assert re.search(rf"static_assert\({name} <= 227 \* 1024", src)
+        assert not re.search(rf"constexpr size_t {name}\s*=[^;]*\b(d|k|kb)\b", src)
     for d in range(16, 785, 16):  # every padded width up to hash-contriever's 784 plans
         plan = tp.plan_launch(100, 5000, k, d, 132)
-        assert plan.row_blocks == 1 and plan.col_splits > 1
+        assert plan.row_blocks == -(-100 // plan.block_rows) and plan.col_splits > 1
 
 
 def test_plan_rejects_what_no_block_takes():
     with pytest.raises(ValueError):
         tp.plan_launch(0, 100, 3, 384, 132)
     with pytest.raises(ValueError):
-        tp.plan_launch(10, 100, 65, 384, 132)  # k past two list slots per lane
+        tp.plan_launch(10, 100, 257, 384, 132)  # k past the shared-memory lists
     with pytest.raises(ValueError):
         tp.plan_launch(10, 100, 3, 385, 132)  # features not padded to 16
