@@ -18,7 +18,9 @@ import torch
 
 from ..device import f32_matmuls, resolve_device
 from ..embeddings.compute import IN_PROCESS_MODES, compute_embeddings
-from ..ops.beam_search import GraphData, beam_search_batch_packed, beam_search_text_batch_packed, unpack_results
+from ..embeddings.encoder import encode_tokens
+from ..ops.beam_search import (GraphData, beam_search_adaptive, beam_search_batch_packed,
+                               beam_search_text_batch_packed, unpack_results)
 from ..ops.pq import lift_codebooks
 from ..storage import derive_token_cache, load_ids, load_token_cache, save_ids, unpack_neighbors  # noqa: F401
 
@@ -148,8 +150,6 @@ class BaseSearcher:
         tok = self.load_tokens()
         if tok is None:
             return None
-        from ..embeddings.encoder import encode_tokens
-
         entries = np.asarray(z["entries"])
         toks = np.asarray(tok[0][entries], np.int32)
         lens = np.asarray(tok[1])[entries]
@@ -180,9 +180,16 @@ class GraphSearcher(BaseSearcher):
     on the searcher's device (absent parts None), and the search calls. A
     subclass loads its npz with :meth:`_load` and gives ``_make_cfg(top_k,
     **search_kwargs) -> (BeamConfig, encoder params)``. Both searches run
-    under :func:`~leann_torch.device.f32_matmuls`."""
+    under :func:`~leann_torch.device.f32_matmuls` and take
+    ``adaptive_steps`` > 0 for the two-phase batched search
+    (``ops/beam_search.beam_search_adaptive``): the batch runs with the step
+    budget capped there, then only the lanes that reached the cap run again
+    at full budget. The results are the same."""
 
-    def _load(self, z) -> None:
+    def _load(self, z, tokens_on_device: bool = True) -> None:
+        """State of the backend npz ``z`` onto the device; the token store
+        stays on the host as ``tokens_host`` / ``lengths_host`` (a raw
+        store memmapped, as loaded) unless ``tokens_on_device``."""
         dev = self.device
         self.neighbors = torch.from_numpy(unpack_neighbors(z).astype(np.int64)).to(dev)
         self.entries = np.asarray(z["entries"])
@@ -202,11 +209,14 @@ class GraphSearcher(BaseSearcher):
                           if ee is not None else None)
         tok = self.load_tokens()
         self.has_tokens = tok is not None
-        self.tokens = self.lengths = None
-        if tok is not None:
+        self.tokens = self.lengths = self.tokens_host = self.lengths_host = None
+        if tok is not None and tokens_on_device:
             # u16 stores widen to i32 on load (the gather indexes an embedding table)
             self.tokens = torch.from_numpy(np.array(tok[0], np.int32)).to(dev)
             self.lengths = torch.from_numpy(np.array(tok[1], np.int32)).to(dev)
+        elif tok is not None:
+            self.tokens_host = tok[0]
+            self.lengths_host = np.asarray(tok[1], np.int32)
         self._enc = None
 
     def _encoder(self):
@@ -226,27 +236,49 @@ class GraphSearcher(BaseSearcher):
             entry_emb=self.entry_emb,
         )
 
-    @staticmethod
-    def _no_adaptive(kwargs) -> None:
-        if int(kwargs.pop("adaptive_steps", 0) or 0):
-            raise not_ported("beam_search_adaptive", "ROADMAP.md, left for later #2")
-
-    @f32_matmuls()
-    def search(self, query: np.ndarray, top_k: int, **kwargs) -> Dict[str, np.ndarray]:
-        self._no_adaptive(kwargs)
-        cfg, enc_params = self._make_cfg(top_k, **kwargs)
+    def _query_batch(self, query: np.ndarray) -> "tuple[int, torch.Tensor]":
+        """Query rows -> (real rows, the batch padded to a power of two on
+        the device)."""
         real_b, (qp,) = pad_batch_rows(np.ascontiguousarray(query, dtype=np.float32))
-        packed = beam_search_batch_packed(torch.from_numpy(qp).to(self.device), self._graph_data(), cfg,
-                                          enc_params)
-        labels, dists = unpack_results(packed)
+        return real_b, torch.from_numpy(qp).to(self.device)
+
+    def _encode_text(self, queries: list, cfg, enc_params) -> "tuple[int, torch.Tensor]":
+        """Query strings -> (real rows, padded batch encoded on the device),
+        with the same calls as the fused text search, so both search the
+        same query vectors."""
+        q_ids, q_mask = self._encoder().tokenize(queries)
+        real_b, (q_ids, q_mask) = pad_batch_rows(q_ids, q_mask)
+        q = encode_tokens(enc_params, torch.from_numpy(q_ids).to(self.device),
+                          torch.from_numpy(q_mask).to(self.device), cfg.enc_cfg)
+        if cfg.normalize and not cfg.enc_cfg.normalize:
+            q = q / q.norm(dim=-1, keepdim=True).clamp_min(1e-12)
+        return real_b, q
+
+    def _run(self, real_b: int, qp: torch.Tensor, cfg, enc_params, adaptive_steps: int) -> Dict[str, np.ndarray]:
+        if adaptive_steps:
+            labels, dists, _, _ = beam_search_adaptive(qp, self._graph_data(), cfg, enc_params,
+                                                       first_steps=adaptive_steps)
+        else:
+            labels, dists = unpack_results(beam_search_batch_packed(qp, self._graph_data(), cfg, enc_params))
         return {"labels": labels[:real_b], "distances": dists[:real_b]}
 
+    @torch.no_grad()
     @f32_matmuls()
-    def search_text(self, query: "str | list", top_k: int, **kwargs) -> Dict[str, np.ndarray]:
-        """Encode the query batch on the device and search it."""
-        self._no_adaptive(kwargs)
+    def search(self, query: np.ndarray, top_k: int, adaptive_steps: int = 0, **kwargs) -> Dict[str, np.ndarray]:
+        cfg, enc_params = self._make_cfg(top_k, **kwargs)
+        return self._run(*self._query_batch(query), cfg, enc_params, int(adaptive_steps or 0))
+
+    @torch.no_grad()
+    @f32_matmuls()
+    def search_text(self, query: "str | list", top_k: int, adaptive_steps: int = 0,
+                    **kwargs) -> Dict[str, np.ndarray]:
+        """Encode the query batch on the device and search it: one fused
+        program, or with ``adaptive_steps`` the two-phase search over the
+        same encoded queries."""
         queries = [query] if isinstance(query, str) else list(query)
         cfg, enc_params = self._make_cfg(top_k, need_encoder=True, **kwargs)
+        if adaptive_steps:
+            return self._run(*self._encode_text(queries, cfg, enc_params), cfg, enc_params, int(adaptive_steps))
         q_ids, q_mask = self._encoder().tokenize(queries)
         real_b, (q_ids, q_mask) = pad_batch_rows(q_ids, q_mask)
         packed = beam_search_text_batch_packed(

@@ -8,8 +8,12 @@ card, writing and reading the same on-disk index:
     ``storage.pack_neighbors`` into ``<prefix>.diskann.npz``. On one card
     there is one partition and the relayout is the identity.
   * search: PQ-ADC traversal of the graph, then one exact pass over the
-    pool head that re-encodes its passages from the device-resident token
-    store (``ops/beam_search.py``).
+    pool head that re-encodes its passages from the token store
+    (``ops/beam_search.py``). The store lives on the device, or, when it
+    would take too much of the card (``token_residency``), in host RAM: the
+    traversal then returns the pool head, the host gathers those rows'
+    tokens, and a second call re-encodes them for the exact rerank
+    (``rerank_tokens_batch``), the counterpart of DiskANN's deferred fetch.
 """
 
 from __future__ import annotations
@@ -19,6 +23,7 @@ import time
 from typing import Dict, Optional
 
 import numpy as np
+import torch
 
 from ...device import f32_matmuls, resolve_device
 from ...interface import (
@@ -26,7 +31,7 @@ from ...interface import (
     LeannBackendFactoryInterface,
     LeannBackendSearcherInterface,
 )
-from ...ops.beam_search import BeamConfig
+from ...ops.beam_search import BeamConfig, rerank_tokens_batch, unpack_results
 from ...ops.graph import build_graph
 from ...ops.pq import choose_m, encode_pq_blocked, lift_codebooks, train_opq, train_pq
 from ...registry import register_backend
@@ -56,8 +61,6 @@ class DiskannBuilder(LeannBackendBuilderInterface):
     ):
         if build_sharded:
             raise not_ported("the mesh-sharded build", "ROADMAP.md, left for later #10")
-        if build_checkpoint_dir:
-            raise not_ported("the checkpointed build", "ROADMAP.md, left for later #4")
         if num_partitions > 1:
             raise not_ported("LDG partitioning and relayout", "ROADMAP.md, left for later #6")
         self.device = resolve_device(device)
@@ -69,6 +72,7 @@ class DiskannBuilder(LeannBackendBuilderInterface):
         self.pq_subspaces = pq_subspaces
         self.pq_rotate = pq_rotate
         self.reverse_candidates = reverse_candidates
+        self.build_checkpoint_dir = build_checkpoint_dir
         self.phase_seconds: Dict[str, float] = {}
 
     @f32_matmuls()
@@ -84,7 +88,8 @@ class DiskannBuilder(LeannBackendBuilderInterface):
         cand_factor = max(2, min(8, self.complexity // max(r, 1)))
         neighbors, medoid = build_graph(
             graph_data, r=r, candidate_factor=cand_factor, alpha=self.alpha,
-            reverse_candidates=self.reverse_candidates, device=self.device, phase_seconds=times,
+            checkpoint_dir=self.build_checkpoint_dir, reverse_candidates=self.reverse_candidates,
+            device=self.device, phase_seconds=times,
         )
         assign = np.zeros(n, np.int32)  # one partition: the relayout is the identity
 
@@ -136,17 +141,79 @@ class DiskannBuilder(LeannBackendBuilderInterface):
 
 
 class DiskannSearcher(GraphSearcher, LeannBackendSearcherInterface):
-    """Graph, codes, codebooks, entry pool and token store all live on the
-    searcher's device."""
+    """Graph, codes, codebooks and entry pool live on the searcher's device;
+    the token store too, or in host RAM with the deferred rerank."""
+
+    # share of the card's free memory (at load) the token store may take
+    # before ``token_residency="auto"`` keeps it on the host (the card's
+    # own figure, not the TPU's fixed 4 GB)
+    HOST_TOKEN_SHARE = 0.25
 
     def __init__(self, index_path: str, sharded: "bool | str" = False, token_residency: str = "auto",
                  **kwargs):
+        """``token_residency``: "device" uploads the token store, "host"
+        keeps it in host RAM (a raw store stays memmapped) and defers the
+        exact rerank to a second call over host-gathered rows, "auto" keeps
+        it on the host when its i32 form would take more than
+        ``HOST_TOKEN_SHARE`` of the card's free memory."""
         super().__init__(index_path, **kwargs)
         if sharded is True:
             raise not_ported("the sharded searcher", "ROADMAP.md, left for later #10")
-        if token_residency == "host":
-            raise not_ported("host token residency", "ROADMAP.md, left for later #2")
-        self._load(np.load(f"{index_path}.diskann.npz", allow_pickle=False))
+        if token_residency not in ("host", "device", "auto"):
+            raise ValueError(f"unknown token_residency {token_residency!r}")
+        host = token_residency == "host"
+        if token_residency == "auto" and self.device.type == "cuda":
+            tok_bytes = 4 * self.meta.get("num_chunks", 0) * self.max_length  # i32 on the card
+            host = tok_bytes > self.HOST_TOKEN_SHARE * torch.cuda.mem_get_info(self.device)[0]
+        self._load(np.load(f"{index_path}.diskann.npz", allow_pickle=False), tokens_on_device=not host)
+        if self.tokens_host is not None:
+            logger.info("diskann tokens host-resident (%.2f GB); deferred rerank",
+                        self.tokens_host.nbytes / 2**30)
+
+    @torch.no_grad()
+    @f32_matmuls()
+    def search(self, query: np.ndarray, top_k: int, adaptive_steps: int = 0, **kwargs) -> Dict[str, np.ndarray]:
+        if self.tokens_host is not None and kwargs.get("recompute_embeddings", True):
+            return self._search_host_rerank(*self._query_batch(query), top_k,
+                                            adaptive_steps=int(adaptive_steps or 0), **kwargs)
+        return super().search(query, top_k, adaptive_steps=adaptive_steps, **kwargs)
+
+    @torch.no_grad()
+    @f32_matmuls()
+    def search_text(self, query: "str | list", top_k: int, adaptive_steps: int = 0,
+                    **kwargs) -> Dict[str, np.ndarray]:
+        if self.tokens_host is not None and kwargs.get("recompute_embeddings", True):
+            queries = [query] if isinstance(query, str) else list(query)
+            cfg, enc_params = self._make_cfg(top_k, need_encoder=True, **kwargs)
+            return self._search_host_rerank(*self._encode_text(queries, cfg, enc_params), top_k,
+                                            adaptive_steps=int(adaptive_steps or 0), **kwargs)
+        return super().search_text(query, top_k, adaptive_steps=adaptive_steps, **kwargs)
+
+    def _search_host_rerank(self, real_b: int, qp: torch.Tensor, top_k: int, *, complexity: int = 64,
+                            beam_width: int = 4, rerank_size: int = 0, adaptive_steps: int = 0,
+                            **kwargs) -> Dict[str, np.ndarray]:
+        """Search with the token store in host RAM: the PQ traversal returns
+        the pool head of RR rows (call 1), the host gathers those rows'
+        tokens, and :func:`rerank_tokens_batch` re-encodes them for the
+        exact top-k (call 2). The card holds the graph, the codes and RR
+        token rows per query. ``qp`` is the padded batch of ``real_b``
+        queries on the device."""
+        l = max(complexity, top_k, beam_width)
+        rr = max(min(l, rerank_size) if rerank_size else l, top_k)
+        kwargs.pop("recompute_embeddings", None)
+        cfg, _ = self._make_cfg(rr, complexity=complexity, beam_width=beam_width, recompute_embeddings=False,
+                                **kwargs)
+        ids = self._run(qp.shape[0], qp, cfg, None, adaptive_steps)["labels"]
+        safe = np.clip(ids, 0, self.n - 1)
+        toks = np.asarray(self.tokens_host[safe.reshape(-1)], np.int32).reshape(*safe.shape, -1)
+        lens = self.lengths_host[safe]
+        enc = self._encoder()
+        dev = self.device
+        packed = rerank_tokens_batch(qp, torch.from_numpy(toks).to(dev), torch.from_numpy(lens).to(dev),
+                                     torch.from_numpy(np.ascontiguousarray(ids)).to(dev), top_k, self.metric,
+                                     self.metric == "cosine", enc.cfg, enc.params)
+        labels, dists = unpack_results(packed)
+        return {"labels": labels[:real_b], "distances": dists[:real_b]}
 
     def _make_cfg(
         self,

@@ -68,8 +68,6 @@ class HnswBuilder(LeannBackendBuilderInterface):
     ):
         if build_sharded:
             raise not_ported("the mesh-sharded build", "ROADMAP.md, left for later #10")
-        if build_checkpoint_dir:
-            raise not_ported("the checkpointed build", "ROADMAP.md, left for later #4")
         self.device = resolve_device(device)
         self.distance_metric = distance_metric
         self.is_compact = is_compact
@@ -80,6 +78,7 @@ class HnswBuilder(LeannBackendBuilderInterface):
         self.pq_subspaces = pq_subspaces
         self.pq_rotate = pq_rotate
         self.reverse_candidates = reverse_candidates
+        self.build_checkpoint_dir = build_checkpoint_dir
         self.phase_seconds: Dict[str, float] = {}
 
     @f32_matmuls()
@@ -94,7 +93,8 @@ class HnswBuilder(LeannBackendBuilderInterface):
         cand_factor = max(2, min(8, self.ef_construction // max(self.m, 1)))
         neighbors, medoid = build_graph(
             graph_data, r=self.m, candidate_factor=cand_factor, alpha=self.alpha,
-            reverse_candidates=self.reverse_candidates, device=self.device, phase_seconds=times,
+            checkpoint_dir=self.build_checkpoint_dir, reverse_candidates=self.reverse_candidates,
+            device=self.device, phase_seconds=times,
         )
         payload: Dict[str, Any] = {
             **pack_neighbors(neighbors),

@@ -26,9 +26,11 @@
 // |q|^2 from the f32 query); mips/cosine -> -q.e. Rows >= valid_n are
 // never candidates; -1 / 3.4e38 fill rows with fewer than k valid rows.
 // k <= 16 (the oracle's k = 3, search's default 5) takes the quad-owned
-// lists, the cheapest inserts.
+// lists, the cheapest inserts; any k is taken (top_k > 256 keeps its lists
+// in device memory).
 //
-// Shared memory per block: 133,184 B at every D, 206,896 B for k > 64
+// Shared memory per block: 133,184 B at every D and at k > 256 (lists in
+// device memory, in the partial-list output), 206,896 B for 64 < k <= 256
 // (topk_common.cuh).
 #include "topk_common.cuh"
 
@@ -67,6 +69,7 @@ extern "C" int flat_topk_launch(const float* q, const void* e, const float* en, 
   a.rows = B;
   a.q_row0 = 0;
   a.self_excl = 0;
+  a.col_id0 = 0;
   a.l2 = l2;
   a.n_cols = valid_n < N ? (valid_n > 0 ? valid_n : 0) : N;
   a.k = k;

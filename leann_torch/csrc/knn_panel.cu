@@ -35,8 +35,18 @@
 // a multiple of 16 (D = 385 under mips augmentation; ops/knn_panel.py
 // panel_inputs). Ties go to the lower id, as lax.top_k.
 //
-// Shared memory per block: 133,184 B at every D, 206,896 B for k > 64
-// (topk_common.cuh).
+// Shared memory per block: 133,184 B at every D and at k > 256 (lists in
+// device memory), 206,896 B for 64 < k <= 256 (topk_common.cuh).
+//
+// The column-sharded k-NN (ops/graph.py exact_knn_sharded, the counterpart
+// of _exact_knn_shard_device: corpora whose bf16 matrix outgrows the card)
+// takes the second entry, knn_panel_launch_ext: query rows from outside the
+// corpus operand (an uploaded chunk, or rows of the same slab), a column
+// slab whose column 0 is global id col_id0, and global ids out. The running
+// top-k the JAX package carries across shards with lax.top_k over
+// concat([run, new]) is the third entry, topk_merge_launch: the two lists
+// stacked as [S, 2, k] and folded by (distance, id) with the same merge
+// kernels the column splits use.
 #include "topk_common.cuh"
 
 using namespace leann;
@@ -57,8 +67,45 @@ extern "C" int knn_panel_launch(const void* e, const float* norms, float* pv, in
   a.rows = q_count;
   a.q_row0 = q_start;
   a.self_excl = 1;
+  a.self_col0 = q_start;
+  a.col_id0 = 0;
   a.l2 = 1;
   a.n_cols = n_real < N ? (n_real > 0 ? n_real : 0) : N;
   a.k = k;
   return topk_launch(e, N, e, N, D, a, row_blocks, col_splits, pv, pi, ov, oi, stream);
+}
+
+// q bf16[S, D] (query rows, 16-byte-aligned base; may be rows of c itself)
+// with f32 squared norms qn[S]; c bf16[M, D] the column slab with norms
+// cn[M]; columns >= n_real_cols are never candidates. Ids come out global:
+// col_id0 + the slab column. Query row r is corpus row q_id0 + r and never
+// takes itself; q_id0 < 0 excludes nothing. Partial lists pv/pi
+// [S, col_splits, k] when col_splits > 1; outputs ov f32 / oi i32 [S, k].
+extern "C" int knn_panel_launch_ext(const void* q, const float* qn, const void* c, const float* cn, float* pv,
+                                    int* pi, float* ov, int* oi, int S, int M, int D, int n_real_cols,
+                                    int col_id0, int q_id0, int k, int row_blocks, int col_splits,
+                                    cudaStream_t stream) {
+  if (S < 1 || M < 1 || col_id0 < 0 || !qn || !cn) return (int)cudaErrorInvalidValue;
+  TopkArgs a{};
+  a.cn = cn;
+  a.qn = qn;
+  a.rows = S;
+  a.q_row0 = 0;
+  a.self_excl = q_id0 >= 0;
+  a.self_col0 = q_id0 - col_id0;
+  a.col_id0 = col_id0;
+  a.l2 = 1;
+  a.n_cols = n_real_cols < M ? (n_real_cols > 0 ? n_real_cols : 0) : M;
+  a.k = k;
+  return topk_launch(q, S, c, M, D, a, row_blocks, col_splits, pv, pi, ov, oi, stream);
+}
+
+// Folds `lists` sorted lists per row, pv f32 / pi i32 [rows, lists, k] (ids
+// -1 = empty), into ov / oi [rows, k] by (distance, id): the running-state
+// merge of the sharded k-NN at lists = 2.
+extern "C" int topk_merge_launch(const float* pv, const int* pi, float* ov, int* oi, int rows, int lists, int k,
+                                 cudaStream_t stream) {
+  if (rows < 1 || lists < 1 || k < 1) return (int)cudaErrorInvalidValue;
+  launch_merge(pv, pi, ov, oi, rows, lists, k, stream);
+  return (int)cudaGetLastError();
 }

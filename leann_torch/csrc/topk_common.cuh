@@ -57,6 +57,18 @@
 //   48 B barriers = kWideSmemBytes = 206,896 B. With 128 rows the lists
 //   alone would take 256 KB at k = 256.
 //
+// Above kMaxK (the HNSW build at M = 64, efConstruction = 512 asks for
+// C = 512; a flat search may ask for any top_k) shared memory cannot hold
+// the lists either: 64 rows x 512 x 8 B = 256 KB. That fifth instance
+// (GmemRows) keeps each (block, row) list of k entries in device memory,
+// in the block's own slice of the [rows, splits, k] output the wrapper
+// allocates (the partial lists, or the final ones with one split), read
+// and written through L2 by the same lane-owned insert as SmemRows
+// (glist_insert). It takes the register instances' block: 128 rows, two
+// consumer warpgroups, the 4-stage ring, kSmemBytes. Its merge
+// (topk_merge_gmem) folds the partial lists into the [rows, k] output the
+// same way. There is no limit on k but memory.
+//
 // The tensor maps are encoded on the host per launch with the driver API's
 // cuTensorMapEncodeTiled, reached through cudaGetDriverEntryPoint (the
 // runtime hands out the driver's entry point), so the libraries link only
@@ -78,7 +90,8 @@ constexpr int kBoxK = 64;                        // features per TMA box
 constexpr int kBoxBytes = 128 * kBoxK * 2;       // one box of 128 rows: 16 KB
 constexpr int kStageBytes = 2 * kBoxBytes;       // a stage: query box + corpus box
 constexpr int kRegMaxK = 64;                     // WarpRows: two list slots per lane
-constexpr int kMaxK = 256;                       // SmemRows: lists in shared memory
+constexpr int kMaxK = 256;                       // SmemRows: lists in shared memory; GmemRows above
+constexpr int kGroup = 4;                        // GmemRows: 32-entry chunks an insert reads at once
 constexpr int kStages = 4;                       // ring slots (one box in flight needs two)
 constexpr int kMergeThreads = 256;
 
@@ -208,7 +221,9 @@ struct TopkArgs {
   int* oi;          // [rows, splits, k] ids, -1 for empty slots
   int rows;         // query rows
   int q_row0;       // row of query 0 in the query tensor map
-  int self_excl;    // never take column q_row0 + r for query row r
+  int self_excl;    // never take column self_col0 + r for query row r
+  int self_col0;    // column of query row 0 itself (may lie outside the columns)
+  int col_id0;      // id of column 0: added to every id written out
   int l2;           // |q|^2 + |c|^2 - 2 q.c, else -q.c
   int n_cols;       // candidate columns [0, n_cols); split s of S takes tiles
                     // [s T / S, (s + 1) T / S) of the T = ceil(n_cols / 128)
@@ -227,7 +242,8 @@ struct TopkArgs {
 //   WarpRows (k <= 64): a row's list spans the warp (lane l holds positions
 //     l and l + 32), one insert at a time, with cheap shuffles per insert;
 //   SmemRows (k <= 256): as WarpRows, but the lists lie in shared memory
-//     (lane l owns positions l + 32 s), read and written back per insert.
+//     (lane l owns positions l + 32 s), read and written back per insert;
+//   GmemRows (any k): as SmemRows, with the lists in device memory.
 
 template <int SL>
 struct QuadRows {
@@ -332,7 +348,7 @@ struct QuadRows {
       for (int s = 0; s < SL; ++s)
         if (4 * s + sub < a.k) {
           a.ov[out + 4 * s + sub] = v[h][s];
-          a.oi[out + 4 * s + sub] = i[h][s] == kEmptyId ? -1 : i[h][s];
+          a.oi[out + 4 * s + sub] = i[h][s] == kEmptyId ? -1 : i[h][s] + a.col_id0;
         }
     }
   }
@@ -436,11 +452,11 @@ struct WarpRows {
       const size_t out = ((size_t)qr * gridDim.x + split) * a.k;
       if (lane < a.k) {
         a.ov[out + lane] = rows[r].v[0];
-        a.oi[out + lane] = rows[r].i[0] == kEmptyId ? -1 : rows[r].i[0];
+        a.oi[out + lane] = rows[r].i[0] == kEmptyId ? -1 : rows[r].i[0] + a.col_id0;
       }
       if (lane + 32 < a.k) {
         a.ov[out + lane + 32] = rows[r].v[1];
-        a.oi[out + lane + 32] = rows[r].i[1] == kEmptyId ? -1 : rows[r].i[1];
+        a.oi[out + lane + 32] = rows[r].i[1] == kEmptyId ? -1 : rows[r].i[1] + a.col_id0;
       }
     }
   }
@@ -541,23 +557,153 @@ struct SmemRows {
       const size_t out = ((size_t)qr * gridDim.x + split) * a.k;
       for (int q = lane; q < a.k; q += 32) {
         a.ov[out + q] = v[r * kMaxK + q];
-        a.oi[out + q] = id[r * kMaxK + q] == kEmptyId ? -1 : id[r * kMaxK + q];
+        a.oi[out + q] = id[r * kMaxK + q] == kEmptyId ? -1 : id[r * kMaxK + q] + a.col_id0;
       }
     }
   }
 };
 
+// Insert (cv, ci), which beats position k - 1, into the sorted list (v, id)
+// of k entries in device memory; all lanes of the warp call with it. As
+// slist_insert, lane l reads and writes only its own positions l + 32 s, so
+// it sees its own stores and no other lane's; the list is walked in groups
+// of kGroup chunks of 32 (one load each, issued together): groups before
+// the candidate's position are only counted, the rest shift by one.
+// (tv, ti) is position k - 1 afterwards.
+__device__ __forceinline__ void glist_insert(float* v, int* id, int k, float cv, int ci, float& tv, int& ti) {
+  const int lane = threadIdx.x & 31;
+  int p = -1;      // the candidate's position, once its group is reached
+  int before = 0;  // entries before the candidate in the groups read so far
+  float cw = kInf;  // lane 31's entry of the previous chunk before the insert
+  int cwi = kEmptyId;
+  float lv = kInf;  // position k - 1 afterwards (held by lane (k - 1) % 32)
+  int li = kEmptyId;
+  for (int g0 = 0; g0 < k; g0 += 32 * kGroup) {
+    float x[kGroup];
+    int y[kGroup];
+#pragma unroll
+    for (int s = 0; s < kGroup; ++s) {
+      const int q = g0 + 32 * s + lane;
+      x[s] = q < k ? v[q] : kInf;
+      y[s] = q < k ? id[q] : kEmptyId;
+    }
+    if (p < 0) {
+      int c = 0;  // sorted: the entries before the candidate are a prefix
+#pragma unroll
+      for (int s = 0; s < kGroup; ++s)
+        c += __popc(__ballot_sync(0xffffffffu, g0 + 32 * s + lane < k && lex_less(x[s], y[s], cv, ci)));
+      before += c;
+      if (c == 32 * kGroup) {  // the whole group stays where it is
+        cw = __shfl_sync(0xffffffffu, x[kGroup - 1], 31);
+        cwi = __shfl_sync(0xffffffffu, y[kGroup - 1], 31);
+        continue;
+      }
+      p = before;
+    }
+#pragma unroll
+    for (int s = 0; s < kGroup; ++s) {
+      const int q = g0 + 32 * s + lane;
+      float u = __shfl_up_sync(0xffffffffu, x[s], 1);  // position q takes q - 1
+      int j = __shfl_up_sync(0xffffffffu, y[s], 1);
+      const float nw = __shfl_sync(0xffffffffu, x[s], 31);
+      const int nwi = __shfl_sync(0xffffffffu, y[s], 31);
+      if (lane == 0) { u = cw; j = cwi; }
+      cw = nw;
+      cwi = nwi;
+      if (q < k && q >= p) {
+        if (q == p) { u = cv; j = ci; }
+        v[q] = u;
+        id[q] = j;
+        x[s] = u;
+        y[s] = j;
+      }
+      if (q == k - 1) { lv = x[s]; li = y[s]; }
+    }
+  }
+  tv = __shfl_sync(0xffffffffu, lv, (k - 1) & 31);
+  ti = __shfl_sync(0xffffffffu, li, (k - 1) & 31);
+}
+
+// The lists of a warp's 16 query rows for k > kMaxK, in device memory: row
+// r's list is the block's slice of the [rows, splits, k] output, k entries
+// at v + r * stride. Rows past the query rows have no slice and take
+// nothing.
+struct GmemRows {
+  float* v;
+  int* id;
+  size_t stride;  // splits x k
+  int live;       // the warp's rows inside the query rows
+  int len;        // k
+  float tv[2];  // position k - 1 of this thread's rows r0, r1
+  int ti[2];
+
+  __device__ __forceinline__ void bind(const TopkArgs& a, int wrow0, int split) {
+    const size_t off = ((size_t)wrow0 * gridDim.x + split) * a.k;
+    v = a.ov + off;
+    id = a.oi + off;
+    stride = (size_t)gridDim.x * a.k;
+    live = min(16, a.rows - wrow0);
+    len = a.k;
+  }
+
+  __device__ __forceinline__ void init() {
+    const int lane = threadIdx.x & 31;
+    for (int r = 0; r < live; ++r)
+      for (int q = lane; q < len; q += 32) { v[r * stride + q] = kInf; id[r * stride + q] = kEmptyId; }
+    tv[0] = tv[1] = kInf;
+    ti[0] = ti[1] = kEmptyId;
+  }
+
+  template <int H>
+  __device__ __forceinline__ void offer_pairs(int k, float x0, float x1, int c, bool ok0, bool ok1) {
+    const int lane = threadIdx.x & 31;
+    unsigned m0 = __ballot_sync(0xffffffffu, ok0), m1 = __ballot_sync(0xffffffffu, ok1);
+    while (m0 | m1) {
+      const bool first = m0 != 0;
+      const int src = __ffs(first ? m0 : m1) - 1;
+      if (first) m0 &= m0 - 1; else m1 &= m1 - 1;
+      const float cv = __shfl_sync(0xffffffffu, first ? x0 : x1, src);
+      const int ci = __shfl_sync(0xffffffffu, first ? c : c + 1, src);
+      float tv = __shfl_sync(0xffffffffu, this->tv[H], src);  // the row's bar now
+      int ti = __shfl_sync(0xffffffffu, this->ti[H], src);
+      if (!lex_less(cv, ci, tv, ti)) continue;
+      const size_t r = (src >> 2) + 8 * H;
+      glist_insert(v + r * stride, id + r * stride, k, cv, ci, tv, ti);
+      if ((lane >> 2) == (src >> 2)) { this->tv[H] = tv; this->ti[H] = ti; }  // the row's quad
+    }
+  }
+
+  // The lists are the output already: empty slots to -1, ids made global.
+  __device__ __forceinline__ void write(const TopkArgs& a, int, int) const {
+    const int lane = threadIdx.x & 31;
+    for (int r = 0; r < live; ++r)
+      for (int q = lane; q < len; q += 32) {
+        const int x = id[r * stride + q];
+        id[r * stride + q] = x == kEmptyId ? -1 : x + a.col_id0;
+      }
+  }
+};
+
 // Block shape of an instance: consumer warpgroups (64 query rows each),
-// ring stages, list bytes in shared memory and the dynamic shared memory.
+// ring stages, list bytes in shared memory, the dynamic shared memory, and
+// whether the lists live in device memory.
 template <class Rows>
 struct BlockShape {
   static constexpr int warpgroups = 2, stages = kStages;
   static constexpr size_t lists = 0, smem = kSmemBytes;
+  static constexpr bool gmem = false;
 };
 template <>
 struct BlockShape<SmemRows> {
   static constexpr int warpgroups = 1, stages = kWideStages;
   static constexpr size_t lists = kListBytes, smem = kWideSmemBytes;
+  static constexpr bool gmem = false;
+};
+template <>
+struct BlockShape<GmemRows> {
+  static constexpr int warpgroups = 2, stages = kStages;
+  static constexpr size_t lists = 0, smem = kSmemBytes;
+  static constexpr bool gmem = true;
 };
 
 // ---------------------------------------------------------------------------
@@ -625,8 +771,8 @@ __global__ void __launch_bounds__(128 * (BlockShape<Rows>::warpgroups + 1), 1)
     if constexpr (WG == 2) asm volatile("setmaxnreg.inc.sync.aligned.u32 232;");
     const int tid = threadIdx.x & 127, warp = tid >> 5, lane = tid & 31;
     const int r0 = 64 * wg + 16 * warp + (lane >> 2), r1 = r0 + 8;  // this thread's two rows (its quad's)
-    const int self0 = a.self_excl ? a.q_row0 + row0 + r0 : -1;
-    const int self1 = a.self_excl ? a.q_row0 + row0 + r1 : -1;
+    const int self0 = a.self_excl ? a.self_col0 + row0 + r0 : -1;
+    const int self1 = a.self_excl ? a.self_col0 + row0 + r1 : -1;
     const bool live0 = row0 + r0 < a.rows, live1 = row0 + r1 < a.rows;  // padding rows take nothing
     float qn0 = 0.0f, qn1 = 0.0f;
     if (a.l2) {
@@ -635,6 +781,7 @@ __global__ void __launch_bounds__(128 * (BlockShape<Rows>::warpgroups + 1), 1)
     }
     Rows R;  // this warp's 16 rows' lists
     if constexpr (BlockShape<Rows>::lists > 0) R.bind(lists, warp);
+    if constexpr (BlockShape<Rows>::gmem) R.bind(a, row0 + 64 * wg + 16 * warp, split);
     R.init();
     float* cnw = cn_s + wg * kBN;
     const uint32_t ring_a = smem_u32(ring);
@@ -777,6 +924,42 @@ __global__ void __launch_bounds__(kMergeThreads) topk_merge_wide(const float* __
   }
 }
 
+// The same fold for k > kMaxK: each warp's list is its row of the [rows, k]
+// output, in device memory (glist_insert).
+__global__ void __launch_bounds__(kMergeThreads) topk_merge_gmem(const float* __restrict__ pv,
+                                                                 const int* __restrict__ pi, float* ov,
+                                                                 int* oi, int rows, int splits, int k) {
+  const int lane = threadIdx.x & 31;
+  const int r = blockIdx.x * (kMergeThreads / 32) + (threadIdx.x >> 5);
+  if (r >= rows) return;  // whole warp; no block-wide barrier below
+  float* v = ov + (size_t)r * k;
+  int* id = oi + (size_t)r * k;
+  for (int q = lane; q < k; q += 32) { v[q] = kInf; id[q] = kEmptyId; }
+  float tv = kInf;
+  int ti = kEmptyId;
+  const int n = splits * k;
+  const size_t base = (size_t)r * n;
+  for (int t0 = 0; t0 < n; t0 += 32) {
+    const int t = t0 + lane;
+    float c = kInf;
+    int cid = kEmptyId;
+    if (t < n && pi[base + t] >= 0) {
+      c = pv[base + t];
+      cid = pi[base + t];
+    }
+    unsigned m = __ballot_sync(0xffffffffu, c < kInf && lex_less(c, cid, tv, ti));
+    while (m) {
+      const int src = __ffs(m) - 1;
+      m &= m - 1;
+      const float cv = __shfl_sync(0xffffffffu, c, src);
+      const int ci = __shfl_sync(0xffffffffu, cid, src);
+      if (lex_less(cv, ci, tv, ti)) glist_insert(v, id, k, cv, ci, tv, ti);  // the bar rises as the list fills
+    }
+  }
+  for (int q = lane; q < k; q += 32)
+    if (id[q] == kEmptyId) id[q] = -1;
+}
+
 // ---------------------------------------------------------------------------
 // Host side
 
@@ -830,15 +1013,29 @@ static void launch_tiles(const CUtensorMap& qmap, const CUtensorMap& cmap, const
   topk_tiles<Rows><<<dim3(col_splits, row_blocks), 128 * (B::warpgroups + 1), B::smem, stream>>>(qmap, cmap, a);
 }
 
+// Folds `lists` sorted lists of k entries per row, pv/pi [rows, lists, k]
+// (ids -1 = empty), into ov/oi [rows, k]: one warp per row, its list in
+// registers, shared memory or device memory by k.
+static void launch_merge(const float* pv, const int* pi, float* ov, int* oi, int rows, int lists, int k,
+                         cudaStream_t stream) {
+  const int warps = kMergeThreads / 32, blocks = (rows + warps - 1) / warps;
+  if (k <= kRegMaxK)
+    topk_merge<<<blocks, kMergeThreads, 0, stream>>>(pv, pi, ov, oi, rows, lists, k);
+  else if (k <= kMaxK)
+    topk_merge_wide<<<blocks, kMergeThreads, 0, stream>>>(pv, pi, ov, oi, rows, lists, k);
+  else
+    topk_merge_gmem<<<blocks, kMergeThreads, 0, stream>>>(pv, pi, ov, oi, rows, lists, k);
+}
+
 // Checks the plan of ops/tile_plan.py, launches the tile kernel and, with
 // more than one column split, the merge. Query rows are rows q_row0 ..
 // q_row0 + rows of qbase [q_rows_total, d]; the corpus is cbase [c_rows, d].
 static int topk_launch(const void* qbase, int q_rows_total, const void* cbase, int c_rows, int d, TopkArgs a,
                        int row_blocks, int col_splits, float* pv, int* pi, float* ov, int* oi,
                        cudaStream_t stream) {
-  const bool wide = a.k > kRegMaxK;
+  const bool wide = a.k > kRegMaxK && a.k <= kMaxK;
   const int bm = wide ? kWideBM : kBM;  // query rows per block
-  if (a.k < 1 || a.k > kMaxK || a.rows < 1 || row_blocks != (a.rows + bm - 1) / bm ||
+  if (a.k < 1 || a.rows < 1 || row_blocks != (a.rows + bm - 1) / bm ||
       col_splits < 1 || (col_splits > 1 && col_splits > (a.n_cols + kBN - 1) / kBN) ||
       (col_splits > 1 && (!pv || !pi)) || !bf16_rows_ok(qbase, d) || !bf16_rows_ok(cbase, d))
     return (int)cudaErrorInvalidValue;
@@ -849,22 +1046,19 @@ static int topk_launch(const void* qbase, int q_rows_total, const void* cbase, i
   a.ov = col_splits > 1 ? pv : ov;
   a.oi = col_splits > 1 ? pi : oi;
   // quad-owned lists up to k = 16 (eight rows insert at once), warp-wide in
-  // registers up to 64, warp-wide in shared memory above
+  // registers up to 64, warp-wide in shared memory up to kMaxK, warp-wide
+  // in device memory above
   if (a.k <= 4)
     launch_tiles<QuadRows<1>>(qmap, cmap, a, row_blocks, col_splits, stream);
   else if (a.k <= 16)
     launch_tiles<QuadRows<4>>(qmap, cmap, a, row_blocks, col_splits, stream);
-  else if (!wide)
+  else if (a.k <= kRegMaxK)
     launch_tiles<WarpRows>(qmap, cmap, a, row_blocks, col_splits, stream);
-  else
+  else if (wide)
     launch_tiles<SmemRows>(qmap, cmap, a, row_blocks, col_splits, stream);
-  if (col_splits > 1) {
-    const int warps = kMergeThreads / 32, blocks = (a.rows + warps - 1) / warps;
-    if (wide)
-      topk_merge_wide<<<blocks, kMergeThreads, 0, stream>>>(pv, pi, ov, oi, a.rows, col_splits, a.k);
-    else
-      topk_merge<<<blocks, kMergeThreads, 0, stream>>>(pv, pi, ov, oi, a.rows, col_splits, a.k);
-  }
+  else
+    launch_tiles<GmemRows>(qmap, cmap, a, row_blocks, col_splits, stream);
+  if (col_splits > 1) launch_merge(pv, pi, ov, oi, a.rows, col_splits, a.k, stream);
   return (int)cudaGetLastError();
 }
 

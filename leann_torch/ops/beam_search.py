@@ -100,24 +100,33 @@ def _metric_dists(q: torch.Tensor, e: torch.Tensor, metric: str) -> torch.Tensor
     return q.square().sum(-1, keepdim=True) + (en[None, :] if e.dim() == 2 else en) - 2.0 * dots
 
 
+def _encode_rows(toks: torch.Tensor, lens: torch.Tensor, need: torch.Tensor, enc_cfg: EncoderConfig, enc_params,
+                 normalize: bool) -> torch.Tensor:
+    """Encode the passages toks [..., T] / lens [...] where ``need`` ->
+    [..., D] f32 (zeros elsewhere): only the needed rows, flattened in order
+    and encoded ``RECOMPUTE_ROWS`` at a time, so a row's embedding does not
+    depend on the rows around it in the batch."""
+    flat = need.reshape(-1).nonzero()[:, 0]
+    t = toks.shape[-1]
+    rows = toks.reshape(-1, t)[flat].to(torch.int32)
+    mask = (torch.arange(t, device=toks.device)[None, :] < lens.reshape(-1)[flat][:, None]).to(torch.int32)
+    parts = [encode_tokens(enc_params, rows[s : s + RECOMPUTE_ROWS], mask[s : s + RECOMPUTE_ROWS], enc_cfg)
+             for s in range(0, rows.shape[0], RECOMPUTE_ROWS)]
+    dim = parts[0].shape[-1] if parts else enc_cfg.dim
+    e = torch.cat(parts) if parts else torch.zeros((0, dim), device=toks.device)
+    if normalize and not enc_cfg.normalize:
+        e = e / e.norm(dim=-1, keepdim=True).clamp_min(1e-12)
+    out = torch.zeros((need.numel(), dim), dtype=torch.float32, device=toks.device)
+    out[flat] = e.float()
+    return out.reshape(*need.shape, dim)
+
+
 def _recompute_embeddings(g: GraphData, ids: torch.Tensor, need: torch.Tensor, cfg: BeamConfig,
                           enc_params) -> torch.Tensor:
     """Re-encode the passages of node ``ids`` [B, C] where ``need`` from the
     token store -> [B, C, D] f32 (zeros where not needed)."""
-    flat = need.reshape(-1).nonzero()[:, 0]
-    sel = ids.reshape(-1)[flat].clamp(0, g.tokens.shape[0] - 1)
-    toks = g.tokens[sel]
-    t = toks.shape[1]
-    mask = (torch.arange(t, device=ids.device)[None, :] < g.lengths[sel][:, None]).to(torch.int32)
-    parts = [encode_tokens(enc_params, toks[s : s + RECOMPUTE_ROWS], mask[s : s + RECOMPUTE_ROWS], cfg.enc_cfg)
-             for s in range(0, sel.shape[0], RECOMPUTE_ROWS)]
-    dim = parts[0].shape[-1] if parts else cfg.enc_cfg.dim
-    e = torch.cat(parts) if parts else torch.zeros((0, dim), device=ids.device)
-    if cfg.normalize and not cfg.enc_cfg.normalize:
-        e = e / e.norm(dim=-1, keepdim=True).clamp_min(1e-12)
-    out = torch.zeros((ids.numel(), dim), dtype=torch.float32, device=ids.device)
-    out[flat] = e.float()
-    return out.reshape(*ids.shape, dim)
+    sel = ids.clamp(0, g.tokens.shape[0] - 1)
+    return _encode_rows(g.tokens[sel], g.lengths[sel], need, cfg.enc_cfg, enc_params, cfg.normalize)
 
 
 def _exact_dists(q, g: GraphData, ids, valid, cfg: BeamConfig, enc_params, source: str):
@@ -314,6 +323,87 @@ def unpack_results(packed) -> tuple:
 def beam_search_batch_packed(q: torch.Tensor, g: GraphData, cfg: BeamConfig, enc_params=None) -> torch.Tensor:
     """q [B, D] -> packed i32[B, 2k] (see :func:`pack_results`)."""
     return pack_results(*beam_search_batch(q, g, cfg, enc_params)[:2])
+
+
+def pack_results_full(labels: torch.Tensor, dists: torch.Tensor, steps: torch.Tensor,
+                      n_exact: torch.Tensor) -> torch.Tensor:
+    """:func:`pack_results` with the per-lane telemetry the adaptive search
+    decides from: i32[B, 2k + 2] = [labels | bitcast(dists) | steps |
+    n_exact]."""
+    return torch.cat([pack_results(labels, dists), steps.to(torch.int32)[:, None],
+                      n_exact.to(torch.int32)[:, None]], dim=1)
+
+
+def unpack_results_full(packed) -> tuple:
+    """Inverse of :func:`pack_results_full` -> numpy (labels i32[B, k],
+    dists f32[B, k], steps i32[B], n_exact i32[B]), always writable (the
+    adaptive search writes escalated lanes back in place)."""
+    arr = packed.cpu().numpy() if isinstance(packed, torch.Tensor) else np.array(packed)
+    k = (arr.shape[1] - 2) // 2
+    labels = arr[:, :k]
+    dists = np.ascontiguousarray(arr[:, k : 2 * k]).view(np.float32)
+    return labels, dists, arr[:, 2 * k], arr[:, 2 * k + 1]
+
+
+@torch.no_grad()
+def beam_search_batch_packed_full(q: torch.Tensor, g: GraphData, cfg: BeamConfig, enc_params=None) -> torch.Tensor:
+    """q [B, D] -> packed i32[B, 2k + 2] with per-lane steps and n_exact
+    (see :func:`pack_results_full`)."""
+    return pack_results_full(*beam_search_batch(q, g, cfg, enc_params))
+
+
+def beam_search_adaptive(q, g: GraphData, cfg: BeamConfig, enc_params=None, first_steps: int = 0):
+    """Two-phase batched search: the whole batch runs with ``max_steps``
+    capped at ``first_steps``; only the lanes that reached the cap run
+    again, from scratch, at the full budget, in a batch padded to a power
+    of two by repeating them cyclically. The batch loop runs until its
+    slowest lane converges, so a few hard queries no longer hold the whole
+    batch to their step count.
+
+    The result equals the uncapped run: a lane that converged under the cap
+    ran the same hops as it would uncapped (each lane's state depends on
+    its own query alone), and a capped lane is rerun at full budget.
+    ``q`` is a numpy array or a tensor on the graph's device. -> numpy
+    (labels i32[B, k], dists f32[B, k], steps i32[B], n_exact i32[B]);
+    escalated lanes report their full run's steps and n_exact."""
+    import dataclasses
+
+    dev = g.neighbors.device
+    qt = q.to(dev).float() if isinstance(q, torch.Tensor) else torch.from_numpy(
+        np.ascontiguousarray(q, dtype=np.float32)).to(dev)
+    if first_steps <= 0 or first_steps >= cfg.max_steps:
+        return unpack_results_full(beam_search_batch_packed_full(qt, g, cfg, enc_params))
+    cfg1 = dataclasses.replace(cfg, max_steps=int(first_steps))
+    labels, dists, steps, n_exact = unpack_results_full(beam_search_batch_packed_full(qt, g, cfg1, enc_params))
+    # steps == cap means cut short or converged exactly at the cap: both
+    # run again (the second is rare and still right)
+    esc = np.nonzero(steps >= first_steps)[0]
+    if esc.size == 0:
+        return labels, dists, steps, n_exact
+    b2 = 1 << int(esc.size - 1).bit_length() if esc.size > 1 else 1
+    idx = np.resize(esc, b2)  # cyclic repeats: the padding lanes are real queries
+    l2, d2, s2, ne2 = unpack_results_full(
+        beam_search_batch_packed_full(qt[torch.from_numpy(idx).to(dev)], g, cfg, enc_params))
+    m = esc.size
+    labels[esc], dists[esc], steps[esc], n_exact[esc] = l2[:m], d2[:m], s2[:m], ne2[:m]
+    return labels, dists, steps, n_exact
+
+
+@torch.no_grad()
+def rerank_tokens_batch(q: torch.Tensor, toks: torch.Tensor, lens: torch.Tensor, ids: torch.Tensor, k: int,
+                        metric: str, normalize: bool, enc_cfg: EncoderConfig, enc_params) -> torch.Tensor:
+    """The deferred exact rerank over host-gathered token rows: q f32[B, D],
+    toks [B, RR, T] and lens [B, RR] of the pool heads' passages, gathered
+    on the host from its token store, ids [B, RR] (-1 padded) -> packed
+    i32[B, 2k] (:func:`pack_results`) of the exact top-k, ties to the lower
+    position. Only the valid rows are re-encoded, in ``RECOMPUTE_ROWS``
+    chunks, as the device-resident rerank encodes them, so both give the
+    same distances."""
+    valid = ids >= 0
+    d = _metric_dists(q, _encode_rows(toks, lens, valid, enc_cfg, enc_params, normalize), metric)
+    d = torch.where(valid, d, torch.full_like(d, INF))
+    d, order = torch.sort(d, dim=1, stable=True)
+    return pack_results(ids.gather(1, order)[:, :k], d[:, :k])
 
 
 @torch.no_grad()

@@ -5,9 +5,11 @@ warpgroup) and a range of corpus columns, walks the range in 128-column
 tiles whose 64-feature boxes a producer warp streams by TMA into a ring of
 shared-memory stages, and keeps each row's running top-k in registers.
 Above k = 64 the lists move to shared memory and a block takes 64 query
-rows (one consumer warpgroup). The block's shared memory is fixed at
-compile time per instance, whatever D and k (``kSmemBytes`` and
-``kWideSmemBytes``, held to the card's limit by ``static_assert``s there).
+rows (one consumer warpgroup); above k = 256 they move to device memory
+(the block's slice of its output) and the block takes 128 rows again. The
+block's shared memory is fixed at compile time per instance, whatever D and
+k (``kSmemBytes`` and ``kWideSmemBytes``, held to the card's limit by
+``static_assert``s there). No k is refused but k < 1.
 This module decides the grid with pure functions, so the CPU tests reach it.
 """
 
@@ -19,10 +21,10 @@ from functools import lru_cache
 import torch
 
 BLOCK_ROWS = 128     # query rows per block: one wgmma M of 64 per consumer warpgroup
-WIDE_BLOCK_ROWS = 64  # above REG_MAX_K: one consumer warpgroup, lists in shared memory
+WIDE_BLOCK_ROWS = 64  # REG_MAX_K < k <= SMEM_MAX_K: one consumer warpgroup, lists in shared memory
 TILE_COLS = 128      # corpus rows per tile (one wgmma N)
 REG_MAX_K = 64       # lists in registers: two slots per lane of a warp
-MAX_K = 256          # lists in shared memory; past it see ROADMAP.md section C
+SMEM_MAX_K = 256     # lists in shared memory; above, in device memory (128-row blocks)
 
 
 @dataclass(frozen=True)
@@ -34,14 +36,13 @@ class LaunchPlan:
 
 def block_rows(k: int) -> int:
     """Query rows per block of the instance that serves ``k``."""
-    return BLOCK_ROWS if k <= REG_MAX_K else WIDE_BLOCK_ROWS
+    return WIDE_BLOCK_ROWS if REG_MAX_K < k <= SMEM_MAX_K else BLOCK_ROWS
 
 
 def check_k(k: int, who: str) -> None:
-    """Raise where the kernels take no list of ``k`` entries."""
-    if not 1 <= k <= MAX_K:
-        raise ValueError(f"{who}: k={k} outside [1, {MAX_K}] (ROADMAP.md section C: the kernels take "
-                         f"k <= {MAX_K}; the JAX package takes any k)")
+    """Raise where the kernels take no list of ``k`` entries: k < 1."""
+    if k < 1:
+        raise ValueError(f"{who}: k={k} must be at least 1")
 
 
 def split_columns(n_cols: int, splits: int, split: int):

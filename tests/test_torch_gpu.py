@@ -42,7 +42,7 @@ def _flat_inputs(seed, n, d, b, metric):
 
 @pytest.mark.parametrize("b,n", [(1, 5000), (64, 4999), (65, 5000), (130, 4999)])
 @pytest.mark.parametrize("d", [33, 384, 400, 784])
-@pytest.mark.parametrize("k", [1, 3, 5, 16, 64, 65, 128, 256])
+@pytest.mark.parametrize("k", [1, 3, 5, 16, 64, 65, 128, 256, 257, 512, 1000])
 @pytest.mark.parametrize("metric", ["l2", "mips", "cosine"])
 def test_flat_topk_matches_plain(cuda, metric, k, d, b, n):
     e, q = _flat_inputs(3, n, d, b, metric)
@@ -67,12 +67,14 @@ def test_flat_topk_fills_past_valid_rows(cuda):
 
 # n_real = N is the build's own call: the last tile (rows 2944 .. 3071) runs
 # past the corpus and TMA fills it with zeros; n_real = 2900 masks real rows.
-# k = 64 is the diskann build's list, 128 the HNSW build's (shared-memory lists)
+# k = 64 is the diskann build's list, 128 the HNSW build's (shared-memory
+# lists), 512 the HNSW build's at M = 64, efConstruction = 512 (lists in
+# device memory)
 @pytest.mark.parametrize("n_real", [2900, 3000])
 @pytest.mark.parametrize("grid", ["split", "unsplit"])
 @pytest.mark.parametrize("q_count", [1, 129, 1000])
 @pytest.mark.parametrize("d", [384, 385, 784])
-@pytest.mark.parametrize("k", [64, 65, 128, 256])
+@pytest.mark.parametrize("k", [64, 65, 128, 256, 257, 512, 1000])
 def test_knn_panel_matches_plain(cuda, monkeypatch, k, d, q_count, grid, n_real):
     n, q_start = 3000, 100
     emb = torch.from_numpy(np.random.default_rng(7).standard_normal((n, d)).astype(np.float32))
@@ -105,7 +107,7 @@ def _assert_lower_twin_first(ids, dists, half, own=None):
                 assert row_i[p] > row_i[p - 1]
 
 
-@pytest.mark.parametrize("k", [8, 128])
+@pytest.mark.parametrize("k", [8, 128, 512])
 @pytest.mark.parametrize("metric", ["l2", "mips"])
 def test_flat_topk_ties_go_to_the_lower_id(cuda, metric, k):
     half, d = 2000, 384
@@ -118,7 +120,7 @@ def test_flat_topk_ties_go_to_the_lower_id(cuda, metric, k):
     assert _overlap(ids.cpu().numpy(), pi.numpy()) >= 0.95
 
 
-@pytest.mark.parametrize("k", [16, 128])
+@pytest.mark.parametrize("k", [16, 128, 512])
 def test_knn_panel_ties_go_to_the_lower_id(cuda, k):
     half = 1500
     emb = torch.from_numpy(np.random.default_rng(9).standard_normal((half, 384)).astype(np.float32))
@@ -130,7 +132,7 @@ def test_knn_panel_ties_go_to_the_lower_id(cuda, k):
     assert (ids[:half, 0] == np.arange(half) + half).all() and (ids[half:, 0] == np.arange(half)).all()
 
 
-@pytest.mark.parametrize("k_flat,k_knn", [(3, 64), (128, 128)])
+@pytest.mark.parametrize("k_flat,k_knn", [(3, 64), (128, 128), (512, 512)])
 def test_kernels_are_deterministic(cuda, k_flat, k_knn):
     e, q = _flat_inputs(6, 20000, 384, 64, "cosine")
     ebf = e.to(torch.bfloat16).to(cuda)
@@ -150,7 +152,7 @@ def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
     with pytest.raises(TypeError):
         flat_topk(q, e, e.square().sum(1), 100, 3, "l2")  # corpus must be bf16
     with pytest.raises(ValueError):
-        flat_topk(q, e.bfloat16(), e.square().sum(1), 100, 257, "l2")  # k > 256
+        flat_topk(q, e.bfloat16(), e.square().sum(1), 100, 0, "l2")  # an empty list
     with pytest.raises(ValueError):
         flat_topk(q.cpu(), e.bfloat16(), e.square().sum(1), 100, 3, "l2")  # mixed devices
     with pytest.raises(ValueError):
@@ -158,7 +160,63 @@ def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
     with pytest.raises(ValueError):
         knn_panel(e[:, :31].bfloat16().contiguous(), e.square().sum(1), 8)  # unpadded D
     ebf, norms = panel_inputs(e)
-    with pytest.raises(ValueError, match="ROADMAP"):
-        knn_panel(ebf, norms, 257)
+    with pytest.raises(ValueError):
+        knn_panel(ebf, norms, 0)
+    with pytest.raises(ValueError):
+        kp.knn_panel_ext(ebf[:4], norms[:4], ebf, norms, 8, col_id0=-1)
+    with pytest.raises(TypeError):
+        kp.topk_merge(torch.zeros(4, 2, 8, device=cuda), torch.zeros(4, 2, 8, device=cuda))  # ids must be int32
     with pytest.raises(ValueError):
         knn_panel(ebf, norms, 8, q_start=90, q_count=20)
+
+
+# The column-sharded k-NN's entry: query rows uploaded apart from the slab or
+# sliced from it, a slab whose column 0 is corpus row col_id0, global ids
+# out, the query's own row excluded wherever it falls in the slab
+@pytest.mark.parametrize("grid", ["split", "unsplit"])
+@pytest.mark.parametrize("k", [16, 64, 128, 257, 512])
+@pytest.mark.parametrize("layout", ["uploaded", "in_slab", "no_self"])
+def test_knn_panel_ext_matches_plain(cuda, monkeypatch, layout, k, grid):
+    n, d, col_id0, m = 4000, 384, 1024, 2500
+    emb = torch.from_numpy(np.random.default_rng(11).standard_normal((n, d)).astype(np.float32))
+    ebf, norms = panel_inputs(emb.to(cuda))
+    c, cn = ebf[col_id0 : col_id0 + m], norms[col_id0 : col_id0 + m]
+    # uploaded: rows 900 .. 1599, the upper ones inside the slab
+    qs = 900 if layout == "uploaded" else 2000
+    q_id0 = -1 if layout == "no_self" else qs
+    q = ebf[qs : qs + 700].clone() if layout == "uploaded" else c[qs - col_id0 : qs - col_id0 + 700]
+    qn = norms[qs : qs + 700].clone()
+    if grid == "unsplit":
+        monkeypatch.setattr(kp, "multiprocessors", lambda dev: 1)
+    ids, dists = kp.knn_panel_ext(q, qn, c, cn, k, m - 37, col_id0, q_id0)
+    pi, pd = kp.knn_panel_ext_plain(q, qn, c, cn, k, m - 37, col_id0, q_id0)
+    ids = ids.cpu().numpy()
+    assert _overlap(ids, pi.cpu().numpy()) >= 0.98
+    assert ((ids >= col_id0) & (ids < col_id0 + m - 37)).all()
+    if q_id0 >= 0:
+        assert not (ids == (np.arange(700) + q_id0)[:, None]).any()
+    else:  # no exclusion: a row of the slab finds itself first
+        assert (ids[:, 0] == np.arange(700) + qs).all()
+    np.testing.assert_allclose(dists.cpu().numpy(), pd.cpu().numpy(), rtol=1e-4, atol=1e-2)
+
+
+@pytest.mark.parametrize("k", [3, 16, 64, 65, 256, 257, 512])
+def test_running_state_merge_matches_plain(cuda, k):
+    """topk_merge over [S, 2, k] (the sharded k-NN's running state and a new
+    shard's lists) against its plain version: identical ids and values,
+    exact ties to the lower id, empty (-1) entries last; twice the same."""
+    rng = np.random.default_rng(k)
+    s = 700
+    vals = np.sort(rng.integers(0, 50, (s, 2, k)).astype(np.float32), axis=2)  # many exact ties
+    ids = rng.permutation(s * 2 * k).reshape(s, 2, k).astype(np.int32)
+    vals[:200, 0, k // 3 :] = 3.4e38
+    ids[:200, 0, k // 3 :] = -1
+    # each list sorted by (value, id), as the kernels write them
+    order = np.lexsort((ids, vals), axis=2)
+    vals, ids = np.take_along_axis(vals, order, 2), np.take_along_axis(ids, order, 2)
+    v, i = torch.from_numpy(vals).to(cuda), torch.from_numpy(ids).to(cuda)
+    got_i, got_d = kp.topk_merge(v, i)
+    want_i, want_d = kp.topk_merge_plain(v.cpu(), i.cpu())
+    assert torch.equal(got_i.cpu(), want_i) and torch.equal(got_d.cpu(), want_d)
+    again = kp.topk_merge(v, i)
+    assert torch.equal(again[0], got_i) and torch.equal(again[1], got_d)

@@ -178,8 +178,8 @@ def test_compact_index_refuses_what_it_cannot_do(built):
     s = leann_torch.LeannSearcher(prefix, device="cpu")
     with pytest.raises(RuntimeError):
         s.search(queries[0], top_k=2, recompute_embeddings=False)  # no stored embeddings
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        s.search(queries[0], top_k=2, adaptive_steps=8)
+    with pytest.raises(RuntimeError):  # nor on the two-phase adaptive search
+        s.search(queries[0], top_k=2, recompute_embeddings=False, adaptive_steps=8)
     _, ts = _searchers(prefix)
     ts.has_tokens = False  # a compact index without its token store
     with pytest.raises(RuntimeError, match="token store"):

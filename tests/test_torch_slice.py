@@ -164,8 +164,8 @@ def test_unported_backend_raises():
         hnsw.insert("any.leann", np.zeros((1, 8), np.float32))
     with pytest.raises(NotImplementedError, match="ROADMAP.md, left for later #10"):
         hnsw.builder(build_sharded=True, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md, left for later #4"):
-        hnsw.builder(build_checkpoint_dir="ckpt", device="cpu")
+    # the checkpointed build is ported: the builder takes its directory
+    assert hnsw.builder(build_checkpoint_dir="ckpt", device="cpu").build_checkpoint_dir == "ckpt"
 
 
 def test_import_pulls_in_no_jax():
