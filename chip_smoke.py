@@ -25,9 +25,11 @@ final line):
      overlap >= 0.99999 and max abs error <= 1e-5).
      Phases 2-3 time each kernel and each library call as device time: the
      summed time of the CUDA kernels one call launches, from torch.profiler
-     over 10 calls (`kernel_ms`, `library_ms`); `call_ms` is the wall time of
-     the wrapper between CUDA events, host work included. Two launches at
-     the main path's shape must give bit-identical ids and distances.
+     over 10 calls (`kernel_ms`, `library_ms`); each kernel's records must
+     number a multiple of the calls, else the profile is taken again, and
+     the run fails after three. `call_ms` is the wall time of the wrapper
+     between CUDA events, host work included. Two launches at the main
+     path's shape must give bit-identical ids and distances.
   4. main path: 100,000 synthetic chunks -> LeannBuilder(diskann,
      hash-minilm, max_length=128, graph_degree=32).build_index, a flat index
      over the same chunks as the exact oracle, then 64 queries through
@@ -60,9 +62,12 @@ final line):
      same directory resumes (k-NN and prune phases under 1 s, the same
      graph); a flat search at top_k = 512 through LeannSearcher; then phase
      4's index with token_residency="host" against the device-resident
-     search (same labels, distances within 1e-5), and adaptive_steps=8 on
-     the diskann and hnsw indexes against the plain searches (same labels),
-     with ms per query for each.
+     search (same labels, distances within 1e-5), and adaptive search on
+     the diskann and hnsw indexes against the plain searches (same labels):
+     at adaptive_steps=8, and at a cap inside the uncapped run's per-lane
+     step counts (its median), so that some lanes keep their first pass's
+     results and the others run again; ms per query and escalated lanes
+     for each.
   8. the kernels line: per kernel, path and k its launches on that path
      (each path's counts set to 0 just before it and read just after), its
      device time and call time, its plain version's and a library call's
@@ -156,29 +161,57 @@ def _device_us(evt) -> float:
     return getattr(evt, "self_cuda_time_total", 0) if us is None else us
 
 
-def device_ms(torch, fn, reps: int = 10):
+# seconds of idle time on each side of a profile's calls: grown when a
+# profile loses records, and kept for the next
+_PROFILE_PAD = [0.0]
+
+
+def device_ms(torch, fn, reps: int = 10, attempts: int = 4):
     """Summed device time of the CUDA kernels ``fn`` launches, per call, and
     the same by kernel name: torch.profiler over ``reps`` calls after one
-    warm-up."""
+    warm-up -> (ms, ms by kernel, {attempts, pad_s}). Every call launches the same
+    kernels, so each kernel's count of records must be a multiple of
+    ``reps``. Late in a long process the profiler can lose the records of
+    the first or last calls of a profile: the kernels' times, converted from
+    the card's clock, fall outside the host's capture window. A profile that
+    lost records is printed, with the offsets of its kernels from the host
+    events around them, and taken again with the window widened by twice the
+    idle time on each side; after ``attempts`` the run fails: no other
+    clock stands in for device time."""
     from torch.profiler import ProfilerActivity, profile
 
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA], acc_events=True) as prof:
-        for _ in range(reps):
-            fn()
+    for attempt in range(1, attempts + 1):
+        pad = _PROFILE_PAD[0]
+        fn()
         torch.cuda.synchronize()
-    by_kernel = {}
-    for e in prof.key_averages():
-        if str(e.device_type).endswith("CUDA") and _device_us(e) > 0:
-            by_kernel[e.key] = by_kernel.get(e.key, 0.0) + _device_us(e) / 1e3 / reps
-    if not by_kernel:  # the profiler saw no kernel: CUDA events around the same calls, named as such
-        ms = cuda_ms(torch, fn, reps)
-        return ms, {"cuda_events_wall": ms}
-    parts = {}  # names shortened for printing only; kernels that share a prefix add up
-    for key, ms in by_kernel.items():
-        parts[key[:60]] = parts.get(key[:60], 0.0) + ms
-    return sum(by_kernel.values()), parts
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA], acc_events=True) as prof:
+            time.sleep(pad)
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+            time.sleep(pad)
+        by_kernel, counts = {}, {}
+        for e in prof.key_averages():
+            if str(e.device_type).endswith("CUDA") and _device_us(e) > 0:
+                by_kernel[e.key] = by_kernel.get(e.key, 0.0) + _device_us(e) / 1e3 / reps
+                counts[e.key[:60]] = counts.get(e.key[:60], 0) + e.count
+        if by_kernel and all(c % reps == 0 for c in counts.values()):
+            parts = {}  # names shortened for printing only; kernels that share a prefix add up
+            for key, ms in by_kernel.items():
+                parts[key[:60]] = parts.get(key[:60], 0.0) + ms
+            return sum(by_kernel.values()), parts, {"attempts": attempt, "pad_s": pad}
+        evts = prof.events()
+        launches = [e.time_range for e in evts if "LaunchKernel" in e.name]
+        syncs = [e.time_range for e in evts if "Synchronize" in e.name]
+        kernels = [e.time_range for e in evts if str(e.device_type).endswith("CUDA")]
+        emit({"phase": "profiler_lost_records", "attempt": attempt, "pad_s": pad, "reps": reps, "records": counts,
+              "launch_records": len(launches),
+              "first_kernel_after_first_launch_ms": (min(k.start for k in kernels) - launches[0].start) / 1e3
+              if kernels and launches else None,
+              "last_kernel_end_after_sync_end_ms": (max(k.end for k in kernels) - syncs[-1].end) / 1e3
+              if kernels and syncs else None})
+        _PROFILE_PAD[0] = max(0.5, 2 * pad)
+    fail(f"torch.profiler lost kernel records in {attempts} profiles of {reps} calls: {counts}")
 
 
 def sass_counts(path, opcodes=("HGMMA", "UTMALDG")):
@@ -238,7 +271,7 @@ def phase_flat_topk(torch, dev, rng):
             def kernel():
                 return flat_topk(qm, e, en, n, k, metric)
 
-            (k_ms, k_parts), c_ms = device_ms(torch, kernel), cuda_ms(torch, kernel)
+            (k_ms, k_parts, k_att), c_ms = device_ms(torch, kernel), cuda_ms(torch, kernel)
             p_ms = cuda_ms(torch, lambda: flat_search(e, qm, n, k, metric, en=en), reps=3)
             if metric == "l2":
                 lib = lambda: torch.topk(2.0 * (qb @ e.T).float() - en, k)  # noqa: E731
@@ -249,7 +282,7 @@ def phase_flat_topk(torch, dev, rng):
             b_ms, b_by = bound(n_bytes, 2.0 * b * n * d)
             row = {"phase": "flat_topk", "metric": metric, "k": k, "shape": [b, n, d], "overlap": ov,
                    "max_rel_err": rel, "max_abs_err": err, "deterministic": same, "kernel_ms": k_ms,
-                   "kernel_parts_ms": k_parts, "call_ms": c_ms, "plain_ms": p_ms, "library_ms": l_ms, "bound_ms": b_ms, "bound_by": b_by,
+                   "kernel_parts_ms": k_parts, "profile": k_att, "call_ms": c_ms, "plain_ms": p_ms, "library_ms": l_ms, "bound_ms": b_ms, "bound_by": b_by,
                    "ok": bool(ok and same)}
             emit(row)
             if not ok:
@@ -293,7 +326,7 @@ def phase_knn_panel(torch, dev, rng):
         def kernel():
             return knn_panel(ebf, norms, k, q_start, q_count, n_real)
 
-        (k_ms, k_parts) = device_ms(torch, kernel, reps=3 if k > 256 else 10)
+        k_ms, k_parts, k_att = device_ms(torch, kernel, reps=3 if k > 256 else 10)
         c_ms = cuda_ms(torch, kernel, reps=3 if q_count > 4096 else 10)
         p_ms = cuda_ms(torch, plain, reps=1)
 
@@ -307,7 +340,8 @@ def phase_knn_panel(torch, dev, rng):
         b_ms, b_by = bound(n_bytes, 2.0 * q_count * n_real * d)
         row = {"phase": "knn_panel", "shape": [q_count, n, d], "n_real": n_real, "k": k, "overlap": ov,
                "max_abs_err": err, "self_hits": self_hits, "pad_hits": pad_hits, "deterministic": same,
-               "kernel_ms": k_ms, "kernel_parts_ms": k_parts, "call_ms": c_ms, "plain_ms": p_ms,
+               "kernel_ms": k_ms, "kernel_parts_ms": k_parts, "profile": k_att, "call_ms": c_ms,
+               "plain_ms": p_ms,
                "library_ms": l_ms, "bound_ms": b_ms,
                "bound_by": b_by, "ok": bool(ok and same)}
         emit(row)
@@ -503,11 +537,12 @@ def timed_row(torch, kernel, p_ms: float, lib, n_bytes: float, flops: float, rep
     """A kernel's device and call time, beside its plain version's time
     ``p_ms`` on the same inputs, a library call's time, and its bound on the
     card."""
-    k_ms, k_parts = device_ms(torch, kernel, reps=reps)
+    k_ms, k_parts, k_att = device_ms(torch, kernel, reps=reps)
     c_ms = cuda_ms(torch, kernel, reps=reps)
     l_ms = device_ms(torch, lib, reps=reps)[0]
     b_ms, b_by = bound(n_bytes, flops)
-    return {"kernel_ms": k_ms, "kernel_parts_ms": k_parts, "call_ms": c_ms, "plain_ms": p_ms, "library_ms": l_ms,
+    return {"kernel_ms": k_ms, "kernel_parts_ms": k_parts, "profile": k_att, "call_ms": c_ms,
+            "plain_ms": p_ms, "library_ms": l_ms,
             "bound_ms": b_ms, "bound_by": b_by}
 
 
@@ -751,18 +786,27 @@ def phase_beyond_card_path(torch, dev, workdir: str, main: dict, seed: int, max_
     host_same = ld == lh
     host_err = float(np.abs(sd - sh).max())
 
-    # adaptive_steps = 8 on both graph backends
-    esc = []
+    # adaptive search on both graph backends: at adaptive_steps = 8, where
+    # every lane may reach the cap, and at a cap inside the uncapped run's
+    # per-lane step counts, where some lanes converge under it (their first
+    # pass's results are kept) and the others run again
+    runs = []  # (step budget, per-lane steps) of every batch search
     real_full = beam_search.beam_search_batch_packed_full
 
-    def counting_full(q, g, cfg, enc_params=None):
+    def recording_full(q, g, cfg, enc_params=None):
         out = real_full(q, g, cfg, enc_params)
-        if cfg.max_steps == 8:  # the capped first pass: its lanes at the cap run again
-            esc.append((int(q.shape[0]), int((beam_search.unpack_results_full(out)[2] >= 8).sum())))
+        runs.append((cfg.max_steps, beam_search.unpack_results_full(out)[2]))
         return out
 
+    def adaptive_run(s_obj, kw_b, cap, plain):
+        runs.clear()
+        res, ms_q = _timed_search(torch, s_obj, queries, adaptive_steps=cap, **kw_b)
+        first = [st for budget, st in runs if budget == cap][-1]  # the timed search's first pass
+        return {"cap": cap, "same_labels": _labels_scores(res)[0] == plain, "ms_per_query": ms_q,
+                "escalated_lanes": int((first >= cap).sum()), "lanes": int(first.shape[0])}
+
     adaptive = {}
-    beam_search.beam_search_batch_packed_full = counting_full
+    beam_search.beam_search_batch_packed_full = recording_full
     try:
         for backend, s_obj, kw_b, plain in (("diskann", dev_s, kw, ld),
                                             ("hnsw", LeannSearcher(main["hnsw_prefix"]), main["hnsw_kw"], None)):
@@ -771,12 +815,18 @@ def phase_beyond_card_path(torch, dev, workdir: str, main: dict, seed: int, max_
                 plain = _labels_scores(res_plain)[0]
             else:
                 plain_ms_q = dev_ms_q
-            esc.clear()
-            res_ad, ad_ms_q = _timed_search(torch, s_obj, queries, adaptive_steps=8, **kw_b)
-            lanes, escalated = esc[-1]  # the timed search's first pass
-            adaptive[backend] = {"same_labels": _labels_scores(res_ad)[0] == plain, "ms_per_query": ad_ms_q,
-                                 "plain_ms_per_query": plain_ms_q, "escalated_lanes": escalated,
-                                 "lanes": lanes}
+            runs.clear()
+            s_obj.search(queries, adaptive_steps=1 << 30, **kw_b)  # past the budget: one uncapped run
+            budget, steps = runs[-1]
+            inside = [int(v) for v in np.unique(steps) if steps.min() < v < budget]
+            if not inside:
+                fail(f"{backend}: every lane took {steps.min()} steps: no cap splits the batch")
+            med = int(np.median(steps))
+            split_cap = med if steps.min() < med < budget else inside[0]
+            adaptive[backend] = {"plain_ms_per_query": plain_ms_q, "budget": int(budget),
+                                 "steps_min_median_max": [int(steps.min()), med, int(steps.max())],
+                                 "cap_8": adaptive_run(s_obj, kw_b, 8, plain),
+                                 "cap_split": adaptive_run(s_obj, kw_b, split_cap, plain)}
     finally:
         beam_search.beam_search_batch_packed_full = real_full
 
@@ -823,8 +873,11 @@ def phase_beyond_card_path(torch, dev, workdir: str, main: dict, seed: int, max_
         fail("the flat top-512 search disagrees with the top-3 oracle")
     if not (on_host and host_same and host_err <= 1e-5):
         fail("the host-resident token store does not give the device-resident search's answer")
-    if not all(a["same_labels"] for a in adaptive.values()):
-        fail(f"adaptive search changed the labels: {adaptive}")
+    for backend, a in adaptive.items():
+        if not (a["cap_8"]["same_labels"] and a["cap_split"]["same_labels"]):
+            fail(f"adaptive search changed the labels on {backend}: {a}")
+        if not 0 < a["cap_split"]["escalated_lanes"] < a["cap_split"]["lanes"]:
+            fail(f"the split cap did not both keep and escalate lanes on {backend}: {a}")
     for (name, path), r in kr.items():
         if r.get("identical") is False or r.get("overlap", 1.0) < 0.9999 or r["max_abs_err"] > 1e-5:
             fail(f"{name} on {path} disagrees with its plain version: {r}")
@@ -888,7 +941,8 @@ def main() -> int:
         kernels.append({"name": name, "path": path, "k": row["k"], "route": "cuda", "source": src,
                         "replaces": replaces, "launches": launches[path][name],
                         "launches_by_path": {p: c.get(name, 0) for p, c in launches.items()},
-                        "max_abs_err": row["max_abs_err"], "ms": row["kernel_ms"], "call_ms": row["call_ms"],
+                        "max_abs_err": row["max_abs_err"], "ms": row["kernel_ms"],
+                        "ms_source": "torch.profiler device time", "call_ms": row["call_ms"],
                         "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
                         "library_ms": row["library_ms"], "sass": sass[lib]})
     emit({"kernels": kernels})

@@ -67,12 +67,11 @@ extern "C" int flat_topk_launch(const float* q, const void* e, const float* en, 
   a.cn = en;
   a.qn = qn;
   a.rows = B;
-  a.q_row0 = 0;
   a.self_excl = 0;
   a.col_id0 = 0;
   a.l2 = l2;
   a.n_cols = valid_n < N ? (valid_n > 0 ? valid_n : 0) : N;
   a.k = k;
   flat_query_prep<<<B, 128, 0, stream>>>(q, static_cast<__nv_bfloat16*>(qb), qn, D);
-  return topk_launch(qb, B, e, N, D, a, row_blocks, col_splits, pv, pi, ov, oi, stream);
+  return topk_launch(qb, e, N, D, a, row_blocks, col_splits, pv, pi, ov, oi, stream);
 }

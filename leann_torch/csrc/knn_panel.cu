@@ -13,67 +13,44 @@
 //
 // Bound on the H100: operations. The full build computes 2 * N^2 * D FLOP
 // (7.7 TFLOP at N = 100K, D = 384: ~7.8 ms at the 989 TFLOP/s bf16 dense
-// peak). The kernel is topk_tiles (topk_common.cuh) with the queries taken
-// from the corpus itself: a block takes 128 query rows (64 per consumer
-// warpgroup) and streams them with the corpus, box by box, through the TMA
-// ring into wgmma m64n128k16; each row's running top-k (k <= 64) lives in
-// registers across the warp. Above k = 64 (the HNSW build's C = 4 R = 128)
-// the lists live in shared memory and a block takes 64 query rows. Each block reads the whole corpus and its
-// query rows' boxes once per tile from L2: 782 blocks x 782 tiles x 192 KB
-// = 117 GB for the 100K build, the 120 GB of the first version (64 rows
-// resident, the corpus once per block), since no width is kept resident.
-// What the redesign buys is the wgmma/TMA products and one list per row
-// (the first version's warp-serial inserts through shared memory bounded
-// it). When the query rows give fewer than 2 x SMs blocks (q_count below
-// ~34K rows), the planner (ops/tile_plan.py) splits the columns, about one
-// wave of blocks since every split refills its lists, and topk_merge folds
-// the partial lists.
+// peak). The kernel is topk_tiles (topk_common.cuh): a block takes 128 query
+// rows (64 per consumer warpgroup) and streams them with the corpus, box by
+// box, through the TMA ring into wgmma m64n128k16; each row's running top-k
+// (k <= 64) lives in registers across the warp. Above k = 64 (the HNSW
+// build's C = 4 R = 128) the lists live in shared memory and a block takes
+// 64 query rows; above k = 256 in device memory. Each block reads the whole
+// corpus and its query rows' boxes once per tile from L2: 782 blocks x 782
+// tiles x 192 KB = 117 GB for the 100K build, the 120 GB of the first
+// version (64 rows resident, the corpus once per block), since no width is
+// kept resident. What the redesign buys is the wgmma/TMA products and one
+// list per row (the first version's warp-serial inserts through shared
+// memory bounded it). When the query rows give fewer than 2 x SMs blocks
+// (below ~34K rows), the planner (ops/tile_plan.py) splits the columns,
+// about one wave of blocks since every split refills its lists, and
+// topk_merge folds the partial lists.
 //
 // Distances: |q|^2 + |c|^2 - 2 q.c with f32 norms of the f32 embeddings
-// (passed in), the product on the bf16 rows. Columns >= n_real and the
-// query's own row are never candidates. The caller zero-pads the features to
-// a multiple of 16 (D = 385 under mips augmentation; ops/knn_panel.py
+// (passed in), the product on the bf16 rows. Columns >= n_real_cols and the
+// query's own row are never candidates. The caller zero-pads the features
+// to a multiple of 16 (D = 385 under mips augmentation; ops/knn_panel.py
 // panel_inputs). Ties go to the lower id, as lax.top_k.
 //
 // Shared memory per block: 133,184 B at every D and at k > 256 (lists in
 // device memory), 206,896 B for 64 < k <= 256 (topk_common.cuh).
 //
-// The column-sharded k-NN (ops/graph.py exact_knn_sharded, the counterpart
-// of _exact_knn_shard_device: corpora whose bf16 matrix outgrows the card)
-// takes the second entry, knn_panel_launch_ext: query rows from outside the
-// corpus operand (an uploaded chunk, or rows of the same slab), a column
-// slab whose column 0 is global id col_id0, and global ids out. The running
-// top-k the JAX package carries across shards with lax.top_k over
-// concat([run, new]) is the third entry, topk_merge_launch: the two lists
+// One entry, knn_panel_launch, serves both builds. The one-pass k-NN
+// (ops/graph.py exact_knn) passes rows of the corpus as the query rows and
+// the whole corpus as the columns. The column-sharded k-NN (exact_knn_sharded,
+// the counterpart of _exact_knn_shard_device: corpora whose bf16 matrix
+// outgrows the card) passes an uploaded chunk or rows of the slab, and a
+// column slab whose column 0 is global id col_id0; ids come out global. The
+// running top-k the JAX package carries across shards with lax.top_k over
+// concat([run, new]) is the second entry, topk_merge_launch: the two lists
 // stacked as [S, 2, k] and folded by (distance, id) with the same merge
 // kernels the column splits use.
 #include "topk_common.cuh"
 
 using namespace leann;
-
-// e bf16[N, D] (D a multiple of 16, 16-byte-aligned base; query rows are
-// rows q_start .. q_start + q_count of e), norms f32[N]; partial lists
-// pv/pi [q_count, col_splits, k] when col_splits > 1 (else may be null);
-// outputs ov f32 / oi i32 [q_count, k]. The plan (row_blocks, col_splits)
-// comes from ops/tile_plan.py plan_launch. Returns cudaGetLastError() after the
-// launches.
-extern "C" int knn_panel_launch(const void* e, const float* norms, float* pv, int* pi, float* ov, int* oi,
-                                int N, int D, int q_start, int q_count, int n_real, int k, int row_blocks,
-                                int col_splits, cudaStream_t stream) {
-  if (q_count < 1 || q_start < 0 || q_start + q_count > N) return (int)cudaErrorInvalidValue;
-  TopkArgs a{};
-  a.cn = norms;
-  a.qn = norms;
-  a.rows = q_count;
-  a.q_row0 = q_start;
-  a.self_excl = 1;
-  a.self_col0 = q_start;
-  a.col_id0 = 0;
-  a.l2 = 1;
-  a.n_cols = n_real < N ? (n_real > 0 ? n_real : 0) : N;
-  a.k = k;
-  return topk_launch(e, N, e, N, D, a, row_blocks, col_splits, pv, pi, ov, oi, stream);
-}
 
 // q bf16[S, D] (query rows, 16-byte-aligned base; may be rows of c itself)
 // with f32 squared norms qn[S]; c bf16[M, D] the column slab with norms
@@ -81,23 +58,21 @@ extern "C" int knn_panel_launch(const void* e, const float* norms, float* pv, in
 // col_id0 + the slab column. Query row r is corpus row q_id0 + r and never
 // takes itself; q_id0 < 0 excludes nothing. Partial lists pv/pi
 // [S, col_splits, k] when col_splits > 1; outputs ov f32 / oi i32 [S, k].
-extern "C" int knn_panel_launch_ext(const void* q, const float* qn, const void* c, const float* cn, float* pv,
-                                    int* pi, float* ov, int* oi, int S, int M, int D, int n_real_cols,
-                                    int col_id0, int q_id0, int k, int row_blocks, int col_splits,
-                                    cudaStream_t stream) {
+extern "C" int knn_panel_launch(const void* q, const float* qn, const void* c, const float* cn, float* pv, int* pi,
+                                float* ov, int* oi, int S, int M, int D, int n_real_cols, int col_id0, int q_id0,
+                                int k, int row_blocks, int col_splits, cudaStream_t stream) {
   if (S < 1 || M < 1 || col_id0 < 0 || !qn || !cn) return (int)cudaErrorInvalidValue;
   TopkArgs a{};
   a.cn = cn;
   a.qn = qn;
   a.rows = S;
-  a.q_row0 = 0;
   a.self_excl = q_id0 >= 0;
   a.self_col0 = q_id0 - col_id0;
   a.col_id0 = col_id0;
   a.l2 = 1;
   a.n_cols = n_real_cols < M ? (n_real_cols > 0 ? n_real_cols : 0) : M;
   a.k = k;
-  return topk_launch(q, S, c, M, D, a, row_blocks, col_splits, pv, pi, ov, oi, stream);
+  return topk_launch(q, c, M, D, a, row_blocks, col_splits, pv, pi, ov, oi, stream);
 }
 
 // Folds `lists` sorted lists per row, pv f32 / pi i32 [rows, lists, k] (ids

@@ -216,11 +216,10 @@ __device__ __forceinline__ bool lex_less(float a, int ai, float b, int bi) {
 
 struct TopkArgs {
   const float* cn;  // corpus squared norms [n_cols] (l2), else null
-  const float* qn;  // query squared norms, indexed by q_row0 + row (l2), else null
+  const float* qn;  // query squared norms [rows] (l2), else null
   float* ov;        // [rows, splits, k] distances (splits = gridDim.x)
   int* oi;          // [rows, splits, k] ids, -1 for empty slots
   int rows;         // query rows
-  int q_row0;       // row of query 0 in the query tensor map
   int self_excl;    // never take column self_col0 + r for query row r
   int self_col0;    // column of query row 0 itself (may lie outside the columns)
   int col_id0;      // id of column 0: added to every id written out
@@ -761,7 +760,7 @@ __global__ void __launch_bounds__(128 * (BlockShape<Rows>::warpgroups + 1), 1)
         const int t = it / kb, b = it - t * kb;
         unsigned char* stage = ring + s * STAGE;
         mbar_expect_tx(smem_u32(&full[s]), STAGE);
-        tma_load_2d(smem_u32(stage), &qmap, smem_u32(&full[s]), b * kBoxK, a.q_row0 + row0);
+        tma_load_2d(smem_u32(stage), &qmap, smem_u32(&full[s]), b * kBoxK, row0);
         tma_load_2d(smem_u32(stage + QBOX), &cmap, smem_u32(&full[s]), b * kBoxK, col_lo + t * kBN);
       }
     }
@@ -776,8 +775,8 @@ __global__ void __launch_bounds__(128 * (BlockShape<Rows>::warpgroups + 1), 1)
     const bool live0 = row0 + r0 < a.rows, live1 = row0 + r1 < a.rows;  // padding rows take nothing
     float qn0 = 0.0f, qn1 = 0.0f;
     if (a.l2) {
-      if (live0) qn0 = a.qn[a.q_row0 + row0 + r0];
-      if (live1) qn1 = a.qn[a.q_row0 + row0 + r1];
+      if (live0) qn0 = a.qn[row0 + r0];
+      if (live1) qn1 = a.qn[row0 + r1];
     }
     Rows R;  // this warp's 16 rows' lists
     if constexpr (BlockShape<Rows>::lists > 0) R.bind(lists, warp);
@@ -1028,9 +1027,9 @@ static void launch_merge(const float* pv, const int* pi, float* ov, int* oi, int
 }
 
 // Checks the plan of ops/tile_plan.py, launches the tile kernel and, with
-// more than one column split, the merge. Query rows are rows q_row0 ..
-// q_row0 + rows of qbase [q_rows_total, d]; the corpus is cbase [c_rows, d].
-static int topk_launch(const void* qbase, int q_rows_total, const void* cbase, int c_rows, int d, TopkArgs a,
+// more than one column split, the merge. The query rows are qbase [a.rows,
+// d]; the corpus is cbase [c_rows, d].
+static int topk_launch(const void* qbase, const void* cbase, int c_rows, int d, TopkArgs a,
                        int row_blocks, int col_splits, float* pv, int* pi, float* ov, int* oi,
                        cudaStream_t stream) {
   const bool wide = a.k > kRegMaxK && a.k <= kMaxK;
@@ -1040,7 +1039,7 @@ static int topk_launch(const void* qbase, int q_rows_total, const void* cbase, i
       (col_splits > 1 && (!pv || !pi)) || !bf16_rows_ok(qbase, d) || !bf16_rows_ok(cbase, d))
     return (int)cudaErrorInvalidValue;
   CUtensorMap qmap, cmap;
-  if (!make_map(&qmap, qbase, q_rows_total, d, bm) || !make_map(&cmap, cbase, c_rows, d, kBN))
+  if (!make_map(&qmap, qbase, a.rows, d, bm) || !make_map(&cmap, cbase, c_rows, d, kBN))
     return (int)cudaErrorInvalidValue;
   a.kb = feature_boxes(d);
   a.ov = col_splits > 1 ? pv : ov;

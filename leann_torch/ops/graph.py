@@ -17,8 +17,8 @@ spill and NN-descent candidate passes are not ported):
      same ``default_rng(0)`` draws as the JAX package).
 
 ``build_graph(checkpoint_dir=...)`` saves each phase's output and resumes
-from it, with the JAX package's key strings and file names, so a directory
-one package wrote resumes in the other. Graph layout is fixed-degree
+from it, with the JAX package's key strings and file names, so a finished
+phase one package wrote resumes in the other. Graph layout is fixed-degree
 ``i32[N, R]`` padded with -1.
 """
 
@@ -208,7 +208,13 @@ def exact_knn_sharded(
     is flushed after every shard and every ``QCKPT_SECS`` within one; a
     killed run resumes at the last durable (shard, chunk), after purging
     the unfinished shard's ids from the rows not yet durable. The state
-    files go at the end."""
+    files go at the end. A state is resumed only at its own geometry
+    (``rows_per_shard``, ``qchunk``), as in the JAX package: one the JAX
+    package wrote resumes here when ``shard_bytes`` and ``qchunk`` give its
+    numbers (its shards are whole tiles, so ``shard_bytes = rows_per_shard
+    * 2 * D`` does), else it is discarded with a warning. This package's
+    state has N rows where the JAX package wants its padded row count, so
+    the JAX package does not resume it."""
     dev = resolve_device(device)
     n, d = emb.shape
     rows_per_shard = _rows_per_shard(shard_bytes or EXACT_SHARD_BYTES, d)
@@ -228,6 +234,11 @@ def exact_knn_sharded(
             m_sh, m_q = m.get("shards_done", 0), m.get("qchunks_done", 0)
             geom_ok = (m.get("rows_per_shard", rows_per_shard) == rows_per_shard
                        and m.get("qchunk", qchunk) == qchunk)
+            if m.get("key") == key and not geom_ok:
+                logger.warning("exact_knn_sharded: discarding the state of this corpus at rows_per_shard=%s "
+                               "qchunk=%s (this run: %d, %d); pass shard_bytes=%s and qchunk=%s to resume it",
+                               m.get("rows_per_shard"), m.get("qchunk"), rows_per_shard, qchunk,
+                               m.get("rows_per_shard", 0) * 2 * d, m.get("qchunk"))
             if m.get("key") == key and geom_ok and (m_sh > 0 or m_q > 0) and m_sh <= n_shards:
                 run_d = np.lib.format.open_memmap(sd_path, mode="r+")
                 run_i = np.lib.format.open_memmap(si_path, mode="r+")
@@ -484,7 +495,7 @@ def _prune_pq_mode(emb: np.ndarray, cand_h: np.ndarray, r: int, alpha: float, ke
             _ckpt_save(codes_ckpt, codes_key, codes_h)
     else:
         logger.info("prune pq: resumed %d codes from %s", codes_h.shape[0], codes_ckpt)
-    codes_d = torch.from_numpy(np.ascontiguousarray(codes_h[:n])).to(dev)
+    codes_d = torch.from_numpy(np.array(codes_h[:n])).to(dev)  # a copy: a resumed memmap is read-only
     cb_d = torch.from_numpy(np.ascontiguousarray(cb, np.float32)).to(dev)
     del codes_h
     logger.info("prune pq: M=%d ds=%d, codes %.2f GB on the card (%.1fs)", m, d_pq // m,
@@ -690,8 +701,6 @@ def build_graph(
     candidate_factor: int = 2,
     alpha: float = 1.2,
     keep_closest: int = -1,  # -1 = auto (r // 4)
-    query_block: int = 1024,
-    prune_block: int = 512,
     checkpoint_dir: str = "",
     reverse_candidates: int = 0,
     device: "str | torch.device" = "cuda",
@@ -709,11 +718,12 @@ def build_graph(
     ``checkpoint_dir``: each phase's output (k-NN candidates, pruned
     neighbors, the prune's PQ codes) is saved there, keyed on a corpus hash
     and the phase's parameters, and a rerun resumes at the last finished
-    phase, also from a directory the JAX package wrote. ``query_block`` and
-    ``prune_block`` are accepted for the JAX package's signature and ignored
-    (the k-NN grid comes from ``tile_plan.plan_launch``, the prune's block
-    from ``PRUNE_BLOCK_BYTES``). ``phase_seconds``, when given, receives the
-    wall time of each phase."""
+    phase, also from a directory the JAX package wrote (the sharded k-NN's
+    mid-phase state only where its geometry matches: see
+    :func:`exact_knn_sharded`). The k-NN grid comes from
+    ``tile_plan.plan_launch`` and the prune's block from
+    ``PRUNE_BLOCK_BYTES``. ``phase_seconds``, when given, receives the wall
+    time of each phase."""
     dev = resolve_device(device)
     times = phase_seconds if phase_seconds is not None else {}
     n, d = emb.shape

@@ -127,22 +127,19 @@ _launch = None
 
 
 def _lib():
-    """The library's three launchers, bound once: (panel, ext, merge)."""
+    """The library's two launchers, bound once: (panel, merge)."""
     global _launch
     if _launch is None:
         from . import cuda_build
 
         lib = cuda_build.load("knn_panel")
-        fn = lib.knn_panel_launch
-        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-        ext = lib.knn_panel_launch_ext
-        ext.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
-        ext.restype = ctypes.c_int
+        panel = lib.knn_panel_launch
+        panel.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
+        panel.restype = ctypes.c_int
         merge = lib.topk_merge_launch
         merge.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
         merge.restype = ctypes.c_int
-        _launch = (fn, ext, merge)
+        _launch = (panel, merge)
     return _launch
 
 
@@ -171,33 +168,47 @@ def _check_bf16_rows(x: torch.Tensor, xn: torch.Tensor, who: str, what: str) -> 
         raise ValueError(f"{who}: D={x.shape[1]} must be a multiple of {FEATURE_ALIGN} and {what} 16-byte aligned")
 
 
+def _panel_launch(q, qn, c, cn, k: int, n_real_cols: int, col_id0: int, q_id0: int, who: str):
+    """Checks the card operands of the k-NN kernel and launches it -> (ids
+    i32[S, k], dists f32[S, k]); the callers count their own launches."""
+    if q.device.type != "cuda" or any(t.device != q.device for t in (qn, c, cn)):
+        raise ValueError(f"{who}: the query rows, the columns and their norms must lie on one CUDA device")
+    _check_bf16_rows(q, qn, who, "the query rows")
+    _check_bf16_rows(c, cn, who, "the columns")
+    check_k(k, who)
+    s_rows, m = q.shape[0], c.shape[0]
+    if col_id0 < 0 or col_id0 + m >= 1 << 31:
+        raise ValueError(f"{who}: column ids [{col_id0}, {col_id0 + m}) outside int32")
+    dev = q.device
+    plan = plan_launch(s_rows, n_real_cols, k, q.shape[1], multiprocessors(dev))
+    pv, pi, ov, oi = _outputs(s_rows, k, plan.col_splits, dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    rc = _lib()[0](q.data_ptr(), qn.data_ptr(), c.data_ptr(), cn.data_ptr(), _ptr(pv), _ptr(pi), ov.data_ptr(),
+                   oi.data_ptr(), s_rows, m, q.shape[1], n_real_cols, int(col_id0), int(q_id0), k,
+                   plan.row_blocks, plan.col_splits, stream)
+    if rc != 0:
+        raise RuntimeError(f"{who} kernel launch failed: cudaError {rc}")
+    return oi, ov
+
+
 def knn_panel(ebf: torch.Tensor, norms: torch.Tensor, k: int, q_start: int = 0,
               q_count: Optional[int] = None, n_real: Optional[int] = None):
     """ebf bf16[N, D], norms f32[N] (from :func:`panel_inputs`) -> (ids
     i32[q_count, k], squared-L2 dists f32[q_count, k]) for query rows
     ``q_start .. q_start + q_count``; ties go to the lower id, and -1 /
-    3.4e38 fill rows with fewer than k candidates."""
-    n, d = ebf.shape
+    3.4e38 fill rows with fewer than k candidates. :func:`knn_panel_ext`
+    with the rows sliced from the corpus, counted apart."""
+    n = ebf.shape[0]
     q_count = n - q_start if q_count is None else int(q_count)
-    n_real = n if n_real is None else min(int(n_real), n)
+    n_real = n if n_real is None else max(0, min(int(n_real), n))
     if not (0 <= q_start and q_count >= 1 and q_start + q_count <= n):
         raise ValueError(f"knn_panel: query rows [{q_start}, {q_start + q_count}) outside [0, {n})")
     if ebf.device.type == "cpu" and norms.device.type == "cpu":
         return knn_panel_plain(ebf, norms, k, q_start, q_count, n_real)
-    if ebf.device.type != "cuda" or norms.device != ebf.device:
-        raise ValueError("knn_panel: ebf and norms must lie on one CUDA device")
-    _check_bf16_rows(ebf, norms, "knn_panel", "ebf")
-    check_k(k, "knn_panel")
-    dev = ebf.device
-    plan = plan_launch(q_count, n_real, k, d, multiprocessors(dev))
-    pv, pi, ov, oi = _outputs(q_count, k, plan.col_splits, dev)
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    rc = _lib()[0](ebf.data_ptr(), norms.data_ptr(), _ptr(pv), _ptr(pi), ov.data_ptr(), oi.data_ptr(), n, d,
-                   q_start, q_count, n_real, k, plan.row_blocks, plan.col_splits, stream)
-    if rc != 0:
-        raise RuntimeError(f"knn_panel kernel launch failed: cudaError {rc}")
+    sl = slice(q_start, q_start + q_count)
+    out = _panel_launch(ebf[sl], norms[sl], ebf, norms, k, n_real, 0, q_start, "knn_panel")
     knn_panel.launches += 1
-    return oi, ov
+    return out
 
 
 knn_panel.launches = 0
@@ -218,24 +229,9 @@ def knn_panel_ext(q: torch.Tensor, qn: torch.Tensor, c: torch.Tensor, cn: torch.
         raise ValueError(f"knn_panel_ext: bad shapes q{tuple(q.shape)} c{tuple(c.shape)}")
     if all(t.device.type == "cpu" for t in (q, qn, c, cn)):
         return knn_panel_ext_plain(q, qn, c, cn, k, n_real_cols, col_id0, q_id0)
-    if q.device.type != "cuda" or any(t.device != q.device for t in (qn, c, cn)):
-        raise ValueError("knn_panel_ext: q, qn, c and cn must lie on one CUDA device")
-    _check_bf16_rows(q, qn, "knn_panel_ext", "q")
-    _check_bf16_rows(c, cn, "knn_panel_ext", "c")
-    check_k(k, "knn_panel_ext")
-    if col_id0 < 0 or col_id0 + m >= 1 << 31:
-        raise ValueError(f"knn_panel_ext: column ids [{col_id0}, {col_id0 + m}) outside int32")
-    dev = q.device
-    plan = plan_launch(s_rows, n_real_cols, k, q.shape[1], multiprocessors(dev))
-    pv, pi, ov, oi = _outputs(s_rows, k, plan.col_splits, dev)
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    rc = _lib()[1](q.data_ptr(), qn.data_ptr(), c.data_ptr(), cn.data_ptr(), _ptr(pv), _ptr(pi), ov.data_ptr(),
-                   oi.data_ptr(), s_rows, m, q.shape[1], n_real_cols, int(col_id0), int(q_id0), k,
-                   plan.row_blocks, plan.col_splits, stream)
-    if rc != 0:
-        raise RuntimeError(f"knn_panel_ext kernel launch failed: cudaError {rc}")
+    out = _panel_launch(q, qn, c, cn, k, n_real_cols, col_id0, q_id0, "knn_panel_ext")
     knn_panel_ext.launches += 1
-    return oi, ov
+    return out
 
 
 knn_panel_ext.launches = 0
@@ -261,7 +257,7 @@ def topk_merge(vals: torch.Tensor, ids: torch.Tensor):
     ov = torch.empty((s_rows, k), dtype=torch.float32, device=vals.device)
     oi = torch.empty((s_rows, k), dtype=torch.int32, device=vals.device)
     stream = torch.cuda.current_stream(vals.device).cuda_stream
-    rc = _lib()[2](vals.data_ptr(), ids.data_ptr(), ov.data_ptr(), oi.data_ptr(), s_rows, lists, k, stream)
+    rc = _lib()[1](vals.data_ptr(), ids.data_ptr(), ov.data_ptr(), oi.data_ptr(), s_rows, lists, k, stream)
     if rc != 0:
         raise RuntimeError(f"topk_merge kernel launch failed: cudaError {rc}")
     topk_merge.launches += 1

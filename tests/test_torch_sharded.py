@@ -112,6 +112,51 @@ def test_resume_after_a_crash(tmp_path, monkeypatch, where):
     assert not (tmp_path / "exknn_state_d.npy").exists()
 
 
+@pytest.mark.parametrize("geometry", ["same", "other"])
+def test_resume_a_state_the_jax_package_wrote(tmp_path, monkeypatch, caplog, geometry):
+    """A JAX run killed after its first shard leaves its running state; the
+    port resumes it where shard_bytes and qchunk give the same geometry
+    (only the unfinished shards run) and otherwise discards it with a
+    warning and starts over. Both give the uninterrupted answer."""
+    n, d, k = 4000, 16, 6
+    emb = _unit(6, n, d)
+    full_i, full_d = tg.exact_knn(emb, k, device="cpu")
+    calls = {"jax": 0, "port": 0}
+    orig_j = jg._exact_knn_shard_device
+
+    def dying(*a, **kw):
+        calls["jax"] += 1
+        if calls["jax"] > 6:  # 4 chunks a shard: inside the second shard
+            raise RuntimeError("simulated crash")
+        return orig_j(*a, **kw)
+
+    monkeypatch.setattr(jg, "_exact_knn_shard_device", dying)
+    with pytest.raises(RuntimeError, match="simulated"):
+        jg.exact_knn_sharded(emb, k, query_block=256, tile=512, qchunk=1024, shard_bytes=1024 * 2 * d,
+                             approx_recall=1.0, checkpoint_dir=str(tmp_path))
+    meta = json.load(open(tmp_path / "exknn_state.json"))
+    assert meta["shards_done"] == 1 and meta["rows_per_shard"] == 1024 and meta["qchunk"] == 1024
+    orig_t = tg._exact_knn_shard_device
+
+    def count(*a, **kw):
+        calls["port"] += 1
+        return orig_t(*a, **kw)
+
+    monkeypatch.setattr(tg, "_exact_knn_shard_device", count)
+    qchunk = 1024 if geometry == "same" else 512
+    with caplog.at_level("WARNING", logger=tg.logger.name):
+        got_i, got_d = tg.exact_knn_sharded(emb, k, qchunk=qchunk, shard_bytes=1024 * 2 * d,
+                                            checkpoint_dir=str(tmp_path), device="cpu")
+    discarded = any("discarding the state" in r.getMessage() for r in caplog.records)
+    if geometry == "same":
+        assert calls["port"] == 3 * 4 and not discarded
+    else:
+        assert calls["port"] == 4 * 8 and discarded
+    assert (got_i == full_i).all()
+    assert np.abs(got_d - full_d).max() < 1e-4
+    assert not (tmp_path / "exknn_state.json").exists()
+
+
 @pytest.mark.parametrize("include_self", [False, True])
 def test_exact_knn_rows_matches_full_pass_and_jax(include_self):
     n, d, k = 3000, 32, 8
