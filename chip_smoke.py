@@ -6,9 +6,10 @@
 Phases, each printing one JSON line (a failure exits non-zero before the
 final line):
   1. device: the card (nvidia-smi name and power limit), torch and CUDA
-     versions; builds both CUDA kernels with nvcc (build/leann_torch/) and
-     prints ptxas's registers / spills and, from `cuobjdump -sass`, how many
-     wgmma (HGMMA) and TMA load (UTMALDG) instructions each library holds.
+     versions; builds both CUDA kernels with nvcc and the LDG partitioner
+     with the host compiler (build/leann_torch/, all at once) and prints
+     ptxas's registers / spills and, from `cuobjdump -sass`, how many wgmma
+     (HGMMA) and TMA load (UTMALDG) instructions each kernel library holds.
   2. flat top-k kernel (csrc/flat_topk.cu) against its plain PyTorch version
      on the card: q f32[64, 384] against a bf16[100000, 384] corpus,
      k in {3, 5, 10, 16, 64, 128, 256, 257, 512}, metrics l2 and cosine (id
@@ -68,7 +69,28 @@ final line):
      step counts (its median), so that some lanes keep their first pass's
      results and the others run again; ms per query and escalated lanes
      for each.
-  8. the kernels line: per kernel, path and k its launches on that path
+  8. the index lifecycle, on phase 4 and 5's corpus and queries: (a) 256
+     new chunks inserted by LeannBuilder.from_index -> update_index
+     (insert_batch_size=128: two batches) into a copy of phase 5's hnsw
+     index and of phase 4's flat oracle; the updated flat index against a
+     flat index built whole over the 100,256 chunks (same labels, scores
+     within 1e-6) on the 64 old queries and 64 new ones (12-word prefixes
+     of inserted chunks), and hnsw recall@3 on both sets against the
+     updated oracle (floor 0.80); update seconds, rows repaired, the entry
+     pool and all-in bytes before and after. (b) phase 4's chunk embeddings
+     (compute_embeddings) through build_index_from_embeddings with diskann
+     at phase 4's settings and num_partitions=4: k-NN candidates identical
+     to phase 4's, recall@3 (floor 0.80), partition counts summing to N,
+     LDG seconds and edge locality; then repack_index and unrelabel_index
+     on a copy (the partitioned index refuses the unrelabel, as in the JAX
+     package; the copy is set to one partition first): recall@3 within
+     0.01. (c) the same embeddings as f16 with no texts through
+     build_index_from_embeddings on hnsw: f16 embeddings in the npz,
+     is_recompute false, recall@3 through the stored traversal (floor
+     0.80). Each path's kernels (B1 on the updated oracle, B2 at k = 64 and
+     128 on these embeddings) are checked against their plain versions and
+     timed.
+  9. the kernels line: per kernel, path and k its launches on that path
      (each path's counts set to 0 just before it and read just after), its
      device time and call time, its plain version's and a library call's
      time at that path's shapes, and its bound on the card.
@@ -161,8 +183,8 @@ def _device_us(evt) -> float:
     return getattr(evt, "self_cuda_time_total", 0) if us is None else us
 
 
-# seconds of idle time on each side of a profile's calls: grown when a
-# profile loses records, and kept for the next
+# seconds of idle time before a profile's calls: grown when a profile loses
+# records, and kept for the next
 _PROFILE_PAD = [0.0]
 
 
@@ -171,13 +193,14 @@ def device_ms(torch, fn, reps: int = 10, attempts: int = 4):
     the same by kernel name: torch.profiler over ``reps`` calls after one
     warm-up -> (ms, ms by kernel, {attempts, pad_s}). Every call launches the same
     kernels, so each kernel's count of records must be a multiple of
-    ``reps``. Late in a long process the profiler can lose the records of
-    the first or last calls of a profile: the kernels' times, converted from
-    the card's clock, fall outside the host's capture window. A profile that
-    lost records is printed, with the offsets of its kernels from the host
-    events around them, and taken again with the window widened by twice the
-    idle time on each side; after ``attempts`` the run fails: no other
-    clock stands in for device time."""
+    ``reps``. The profiler can lose the records of the first kernels of a
+    profile, more often late in a long process: every loss seen so far was
+    at the start of the window (the first kept record a fraction of a
+    millisecond after the first launch, the last one ending well inside the
+    window). A profile that lost records is printed, with the offsets of its
+    kernels from the host events around them, and taken again after twice
+    the idle time before its calls; after ``attempts`` the run fails: no
+    other clock stands in for device time."""
     from torch.profiler import ProfilerActivity, profile
 
     for attempt in range(1, attempts + 1):
@@ -189,7 +212,6 @@ def device_ms(torch, fn, reps: int = 10, attempts: int = 4):
             for _ in range(reps):
                 fn()
             torch.cuda.synchronize()
-            time.sleep(pad)
         by_kernel, counts = {}, {}
         for e in prof.key_averages():
             if str(e.device_type).endswith("CUDA") and _device_us(e) > 0:
@@ -887,6 +909,242 @@ def phase_beyond_card_path(torch, dev, workdir: str, main: dict, seed: int, max_
     return kr, launches
 
 
+def _copy_index(src_prefix: str, dst_dir: str) -> str:
+    """A copy of an index in ``dst_dir``, its meta pointing at the copy's
+    passages (meta.json holds the paths the build wrote)."""
+    os.makedirs(dst_dir, exist_ok=True)
+    src_dir, base = os.path.split(src_prefix)
+    for f in os.listdir(src_dir):
+        if f.startswith(base + "."):
+            shutil.copy(os.path.join(src_dir, f), dst_dir)
+    prefix = os.path.join(dst_dir, base)
+    with open(prefix + ".meta.json") as f:
+        meta = json.load(f)
+    for src in meta["passage_sources"]:
+        src.update(path=prefix + ".passages.jsonl", index_path=prefix + ".passages.idx")
+    with open(prefix + ".meta.json", "w") as f:
+        json.dump(meta, f)
+    return prefix
+
+
+def _recall(got, truth) -> float:
+    return float(np.mean([len({x.id for x in a} & {x.id for x in b}) / 3 for a, b in zip(got, truth)]))
+
+
+def panel_row(torch, kp, ebf, norms, k: int) -> dict:
+    """knn_panel over every row of a build's corpus at its k: checked against
+    its plain version, and timed."""
+    n = ebf.shape[0]
+    ik, dk = kp.knn_panel(ebf, norms, k)
+    (ip, dp), p_ms = timed_once(torch, lambda: kp.knn_panel_plain(ebf, norms, k, 0, n, n))
+    ov = overlap(ik, ip)
+    err = float((dk - dp).abs().max())
+    self_hits = int((ik == torch.arange(n, device=ik.device)[:, None]).sum())
+    del ik, dk, ip, dp
+
+    def lib():  # one matmul + topk per 1024 query rows
+        for s in range(0, n, 1024):
+            torch.topk(2.0 * (ebf[s : s + 1024] @ ebf.T).float() - norms, k)
+
+    d = ebf.shape[1]
+    row = timed_row(torch, lambda: kp.knn_panel(ebf, norms, k), p_ms, lib, n * (d * 2 + 4) + n * k * 8,
+                    2.0 * n * n * d)
+    return {"shape": [n, n, d], "k": k, "overlap": ov, "max_abs_err": err, "self_hits": self_hits, **row}
+
+
+def phase_lifecycle(torch, dev, workdir: str, main: dict):
+    """Phase 8 -> (kernel rows by (kernel, path), launches by path)."""
+    from leann_torch import LeannBuilder, LeannSearcher
+    from leann_torch.backends.diskann.partition import edge_locality
+    from leann_torch.embeddings.compute import compute_embeddings
+    from leann_torch.ops import graph
+    from leann_torch.ops import knn_panel as kp
+    from leann_torch.ops.distance import flat_search, pad_features
+    from leann_torch.ops.flat_topk import flat_topk
+    from leann_torch.repack import repack_index, unrelabel_index
+    from leann_torch.storage import index_all_in_bytes, load_partition, save_partition, unpack_neighbors
+
+    chunks, queries, truth, kw = main["chunks"], main["queries"], main["truth"], main["kw"]
+    counters = (flat_topk, kp.knn_panel, kp.knn_panel_ext, kp.topk_merge)
+    launches = {}
+    n = len(chunks)
+
+    # (a) insert: 256 new chunks into copies of phase 5's hnsw index and of
+    # phase 4's flat oracle, in two batches of 128 (the second discovery
+    # searches a graph the first one grew)
+    new = synth_corpus(256, np.random.default_rng(8))
+    new_queries = [" ".join(new[i].split()[:12]) for i in np.random.default_rng(8).choice(256, 64, replace=False)]
+    hnsw = _copy_index(main["hnsw_prefix"], os.path.join(workdir, "lc_hnsw"))
+    rows_before = unpack_neighbors(np.load(hnsw + ".hnsw.npz"))
+    pool_before = int(np.load(hnsw + ".hnsw.npz")["entries"].shape[0])
+    bytes_before = index_all_in_bytes(hnsw)
+    _reset(counters)
+    u = LeannBuilder.from_index(hnsw, device=dev)
+    for c in new:
+        u.add_text(c)
+    torch.cuda.synchronize()
+    t = time.time()
+    u.update_index(hnsw, insert_batch_size=128)
+    torch.cuda.synchronize()
+    hnsw_update_s = time.time() - t
+    launches["hnsw_update"] = _counts(counters)
+    z = np.load(hnsw + ".hnsw.npz")
+    rows_after = unpack_neighbors(z)
+    repaired = sum(set(a) != set(b) for a, b in zip(rows_before.tolist(), rows_after[:n].tolist()))
+    hnsw_stats = {"update_s": hnsw_update_s, "s_per_chunk": hnsw_update_s / len(new),
+                  "phase_s": dict(u.phase_seconds), "rows_repaired": int(repaired),
+                  "entry_pool": [pool_before, int(z["entries"].shape[0])],
+                  "all_in_bytes": [bytes_before, index_all_in_bytes(hnsw)], "n_after": int(rows_after.shape[0])}
+
+    flat = _copy_index(main["oracle"], os.path.join(workdir, "lc_flat"))
+    _reset(counters)
+    u = LeannBuilder.from_index(flat, device=dev)
+    for c in new:
+        u.add_text(c)
+    t = time.time()
+    u.update_index(flat)
+    flat_update_s = time.time() - t
+    fs = LeannSearcher(flat, device=dev)
+    flat_res = [fs.search(qs, top_k=3) for qs in (queries, new_queries)]
+    launches["flat_update"] = _counts(counters)
+    whole = os.path.join(workdir, "lc_flat_whole.leann")
+    b = LeannBuilder(backend_name="flat", embedding_model="hash-minilm", max_length=128, device=dev)
+    for c in chunks + new:
+        b.add_text(c)
+    b.build_index(whole)
+    whole_build = dict(b.phase_seconds)
+    ws = LeannSearcher(whole, device=dev)
+    whole_res = [ws.search(qs, top_k=3) for qs in (queries, new_queries)]
+    flat_same = all(_labels_scores(a)[0] == _labels_scores(w)[0] for a, w in zip(flat_res, whole_res))
+    flat_err = max(float(np.abs(_labels_scores(a)[1] - _labels_scores(w)[1]).max())
+                   for a, w in zip(flat_res, whole_res))
+    hs = LeannSearcher(hnsw, device=dev)
+    hnsw_recall = {name: _recall(hs.search(qs, **main["hnsw_kw"]), fr)
+                   for name, qs, fr in (("old", queries, flat_res[0]), ("new", new_queries, flat_res[1]))}
+
+    # (b) from embeddings, partitioned: phase 4's chunk embeddings through
+    # build_index_from_embeddings with diskann at phase 4's settings and 4
+    # LDG partitions
+    t = time.time()
+    emb = compute_embeddings(chunks, "hash-minilm", is_build=True, batch_size=4096, max_length=128, device=dev)
+    embed_s = time.time() - t
+    ids = [str(i) for i in range(n)]
+    knn_seen = {}
+    real_exact_knn = graph.exact_knn
+
+    def recording_exact_knn(*a, **k):  # launches nothing itself
+        knn_seen["ids"], dists = real_exact_knn(*a, **k)
+        return knn_seen["ids"], dists
+
+    part = os.path.join(workdir, "lc_parts.leann")
+    _reset(counters)
+    graph.exact_knn = recording_exact_knn
+    try:
+        b = LeannBuilder(backend_name="diskann", embedding_model="hash-minilm", max_length=128, graph_degree=32,
+                         num_partitions=4, device=dev)
+        b.build_index_from_embeddings(part, ids, emb.copy(), texts=chunks)
+    finally:
+        graph.exact_knn = real_exact_knn
+    launches["from_embeddings_diskann"] = _counts(counters)
+    part_build = dict(b.phase_seconds)
+    knn_same = bool(np.array_equal(knn_seen["ids"], main["knn_ids"]))
+    counts = np.load(part + ".partition.npz")["counts"].tolist()
+    locality = edge_locality(unpack_neighbors(np.load(part + ".diskann.npz")), load_partition(part))
+    part_recall = _recall(LeannSearcher(part, device=dev).search(queries, **kw), truth)
+    # repack and unrelabel on a copy. unrelabel_index refuses a
+    # multi-partition index (as the JAX package's does); the copy's
+    # partition file is set to one part, what a one-card search reads
+    copy = _copy_index(part, os.path.join(workdir, "lc_parts_copy"))
+    repack = repack_index(copy)
+    try:
+        unrelabel_index(copy)
+        refused = False
+    except ValueError:
+        refused = True
+    save_partition(copy, np.zeros(n, np.int32))
+    t = time.time()
+    unrel = unrelabel_index(copy)
+    unrel_s = time.time() - t
+    from leann_torch.storage import load_ids
+
+    unrel_seq = load_ids(copy) == ids
+    unrel_recall = _recall(LeannSearcher(copy, device=dev).search(queries, **kw), truth)
+
+    # (c) f16 embeddings, no texts, hnsw (the default backend)
+    f16 = os.path.join(workdir, "lc_f16.leann")
+    _reset(counters)
+    b = LeannBuilder(embedding_model="hash-minilm", max_length=128, device=dev)  # hnsw: M = 32, efConstruction = 128
+    b.build_index_from_embeddings(f16, ids, emb.astype(np.float16), texts=None)
+    launches["from_embeddings_hnsw_f16"] = _counts(counters)
+    f16_build = dict(b.phase_seconds)
+    f16_dtype = str(np.load(f16 + ".hnsw.npz")["embeddings"].dtype)
+    with open(f16 + ".meta.json") as f:
+        f16_meta = json.load(f)
+    f16_recall = _recall(LeannSearcher(f16, device=dev).search(queries, **main["hnsw_kw"]), truth)
+
+    # the kernels of these paths at their shapes, on their inputs
+    kr = {}
+    be = fs.backend
+    q = be.get_encoder().encode(queries)
+    q = pad_features(torch.from_numpy(q / np.linalg.norm(q, axis=1, keepdims=True)).to(dev))
+    n_flat = be.n
+    ik, dk = flat_topk(q, be._emb, be._en, n_flat, 3, "cosine")
+    (ip, dp), p_ms = timed_once(torch, lambda: flat_search(be._emb, q, n_flat, 3, "cosine", en=be._en))
+    qb = q.to(torch.bfloat16)
+    d_pad = be._emb.shape[1]
+    kr[("flat_topk", "flat_update")] = {
+        "shape": [q.shape[0], n_flat, d_pad], "k": 3, "overlap": overlap(ik, ip),
+        "max_abs_err": float((dk - dp).abs().max()),
+        **timed_row(torch, lambda: flat_topk(q, be._emb, be._en, n_flat, 3, "cosine"), p_ms,
+                    lambda: torch.topk(qb @ be._emb.T, 3), n_flat * d_pad * 2 + q.shape[0] * d_pad * 4
+                    + q.shape[0] * 3 * 8, 2.0 * q.shape[0] * n_flat * d_pad, reps=10)}
+    for path, arr, k in (("from_embeddings_diskann", emb, 64), ("from_embeddings_hnsw_f16", emb.astype(np.float16), 128)):
+        ebf, norms = kp.upload_panel_inputs(arr, dev)
+        kr[("knn_panel", path)] = panel_row(torch, kp, ebf, norms, k)
+        del ebf, norms
+        torch.cuda.empty_cache()
+
+    row = {"phase": "lifecycle", "n_chunks": n, "n_inserted": len(new), "insert_batch_size": 128,
+           "hnsw_update": hnsw_stats, "hnsw_recall_at_3": hnsw_recall,
+           "flat_update": {"update_s": flat_update_s, "same_labels": flat_same, "max_score_diff": flat_err,
+                           "whole_build_s": whole_build},
+           "from_embeddings_diskann": {"embed_s": embed_s, "build_s": part_build, "knn_identical": knn_same,
+                                       "partition_counts": counts, "edge_locality": locality,
+                                       "recall_at_3": part_recall, "phase4_recall_at_3": main["recall"],
+                                       "repack": repack, "unrelabel_refused_while_partitioned": refused,
+                                       "unrelabel_s": unrel_s, "unrelabel_ids_sequential": unrel_seq,
+                                       "unrelabel_recall_at_3": unrel_recall,
+                                       "unrelabel_edge_locality_64k": unrel.get("edge_locality_64k")},
+           "from_embeddings_hnsw_f16": {"build_s": f16_build, "embeddings_dtype": f16_dtype,
+                                        "is_recompute": f16_meta["is_recompute"], "recall_at_3": f16_recall},
+           "launches": launches,
+           "kernels": {f"{name}@{path}": {key: v for key, v in r.items() if key != "kernel_parts_ms"}
+                       for (name, path), r in kr.items()}}
+    emit(row)
+    if not (flat_same and flat_err <= 1e-6):
+        fail("the updated flat index and the whole rebuild disagree")
+    if min(hnsw_recall.values()) < 0.80:
+        fail(f"hnsw recall@3 after the insert below the 0.80 sanity floor: {hnsw_recall}")
+    if rows_after.shape[0] != n + len(new) or repaired == 0:
+        fail(f"the hnsw update did not insert the chunks: {hnsw_stats}")
+    if not knn_same:
+        fail("the from-embeddings k-NN candidates differ from phase 4's")
+    if part_recall < 0.80 or sum(counts) != n or len(counts) != 4:
+        fail(f"the partitioned from-embeddings build is off: recall {part_recall}, counts {counts}")
+    if not (refused and unrel_seq and abs(unrel_recall - part_recall) <= 0.01):
+        fail(f"the unrelabel is off: refused {refused}, sequential {unrel_seq}, recall {unrel_recall}")
+    if f16_dtype != "float16" or f16_meta["is_recompute"] or f16_recall < 0.80:
+        fail(f"the f16 no-text build is off: {f16_dtype}, {f16_meta['is_recompute']}, recall {f16_recall}")
+    for (name, path), r in kr.items():
+        if r["overlap"] < 0.999 or r["max_abs_err"] > 1e-5 or r.get("self_hits", 0):
+            fail(f"{name} on {path} disagrees with its plain version: {r}")
+    for path, name in (("flat_update", "flat_topk"), ("from_embeddings_diskann", "knn_panel"),
+                       ("from_embeddings_hnsw_f16", "knn_panel")):
+        if launches[path][name] < 1:
+            fail(f"kernel {name} was not launched on {path}: {launches[path]}")
+    return kr, launches
+
+
 def main() -> int:
     try:
         import torch
@@ -907,7 +1165,7 @@ def main() -> int:
 
     from leann_torch.ops import cuda_build
 
-    build_s = cuda_build.build(["flat_topk", "knn_panel"])
+    build_s = cuda_build.build(["flat_topk", "knn_panel", "ldg_partition"])
     sass = {name: sass_counts(cuda_build._lib_path(name)) for name in ("flat_topk", "knn_panel")}
     ptxas = {k: [ln.strip() for ln in v.splitlines() if "registers" in ln or "spill" in ln or "entry" in ln]
              for k, v in cuda_build.BUILD_LOGS.items()}
@@ -928,14 +1186,16 @@ def main() -> int:
         launches["hnsw"] = phase_hnsw_path(torch, workdir, main_state)
         rows6, launches6 = phase_beyond_card_knn(torch, dev, seed=6)
         rows7, launches7 = phase_beyond_card_path(torch, dev, workdir, main_state, seed=7)
-    launches.update(launches6)
-    launches.update(launches7)
+        rows8, launches8 = phase_lifecycle(torch, dev, workdir, main_state)
+    for more in (launches6, launches7, launches8):
+        launches.update(more)
 
     b1 = ("leann_torch/csrc/flat_topk.cu", "leann_tpu/ops/pallas_topk.py:32", "flat_topk")
     b2 = ("leann_torch/csrc/knn_panel.cu", "leann_tpu/ops/pallas_knn.py:45", "knn_panel")
     rows = [("flat_topk", "diskann", flat_rows[3], b1), ("knn_panel", "diskann", knn_rows[64], b2),
             ("knn_panel", "hnsw", knn_rows[128], b2), ("flat_topk", "flat_top512", flat_rows[512], b1)]
-    rows += [(name, path, r, b2) for (name, path), r in list(rows6.items()) + list(rows7.items())]
+    rows += [(name, path, r, b1 if name == "flat_topk" else b2)
+             for (name, path), r in list(rows6.items()) + list(rows7.items()) + list(rows8.items())]
     kernels = []
     for name, path, row, (src, replaces, lib) in rows:
         kernels.append({"name": name, "path": path, "k": row["k"], "route": "cuda", "source": src,

@@ -23,7 +23,7 @@ import pickle
 import time
 from dataclasses import dataclass, field
 from pathlib import Path
-from typing import Any, Dict, List, Optional
+from typing import Any, Dict, List, Optional, Sequence
 
 import numpy as np
 
@@ -32,7 +32,7 @@ from .embeddings.compute import IN_PROCESS_MODES, compute_embeddings
 from .interface import LeannBackendSearcherInterface
 from .metadata_filter import MetadataFilterEngine
 from .registry import get_backend, register_project_directory
-from .storage import tokenize_corpus, write_token_cache
+from .storage import load_ids, load_token_cache, save_ids, tokenize_corpus, write_token_cache
 
 logger = logging.getLogger(__name__)
 
@@ -198,6 +198,25 @@ class LeannBuilder:
             id = str(len(self.chunks))
         self.chunks.append({"id": id, "text": text, "metadata": metadata or {}})
 
+    @classmethod
+    def from_index(cls, index_path: str, device: str = "cuda") -> "LeannBuilder":
+        """A builder configured from an existing index's meta.json, for
+        incremental updates: add_text() the new chunks, then update_index()."""
+        with open(f"{index_path}.meta.json") as f:
+            meta = json.load(f)
+        return cls(
+            backend_name=meta["backend_name"],
+            embedding_model=meta["embedding_model"],
+            embedding_mode=meta.get("embedding_mode", "tpu"),
+            dimensions=meta.get("dimensions"),
+            distance_metric=meta.get("distance_metric"),
+            is_compact=meta.get("is_compact", True),
+            is_recompute=meta.get("is_recompute", True),
+            max_length=meta.get("max_length", 256),
+            device=device,
+            **meta.get("backend_kwargs", {}),
+        )
+
     # -- build -------------------------------------------------------------
 
     def _embed(self, texts: List[str], is_build: bool = True) -> np.ndarray:
@@ -244,6 +263,132 @@ class LeannBuilder:
         times["total"] = time.time() - t0
         logger.info("built index %s (%d chunks) in %.2fs", prefix, len(chunks), times["total"])
 
+    def update_index(self, index_path: str, insert_batch_size: int = 256) -> None:
+        """Insert this builder's chunks into an existing index without a
+        rebuild: batched Vamana insertion (``ops/insert.py``) of
+        ``insert_batch_size`` chunks at a time, after the passages, ids and
+        token rows are appended; the meta last. Open searchers must be
+        created again to see the new chunks. ``phase_seconds`` holds the
+        wall time of each phase."""
+        t0 = time.time()
+        times = self.phase_seconds
+        times.clear()
+        prefix = str(index_path)
+        with open(f"{prefix}.meta.json") as f:
+            meta = json.load(f)
+        if meta["backend_name"] != self.backend_name:
+            raise ValueError(f"index is {meta['backend_name']!r}, builder is {self.backend_name!r}")
+        if meta["embedding_model"] != self.embedding_model:
+            raise ValueError("embedding_model mismatch with existing index")
+        factory = get_backend(self.backend_name)
+        insert = getattr(factory, "insert", None)
+        if insert is None:
+            raise NotImplementedError(
+                f"backend {self.backend_name!r} does not support incremental insert "
+                "(diskann's partition-contiguous relabeling requires a rebuild)"
+            )
+        chunks = [c for c in self.chunks if c["text"] and c["text"].strip()]
+        if not chunks:
+            raise ValueError("No non-empty chunks to insert")
+        n_old = int(meta.get("num_chunks", 0))
+        with open(f"{prefix}.passages.idx", "rb") as f:
+            offsets: Dict[str, int] = pickle.load(f)
+        # add_text's positional ids ("0", "1", ...) continue after the
+        # index's rows; an explicit id already in the index raises
+        for i, c in enumerate(chunks):
+            if c["id"].isdigit() and int(c["id"]) < n_old:
+                chunks[i] = {**c, "id": str(n_old + i)}
+            elif c["id"] in offsets:
+                raise ValueError(f"duplicate id {c['id']!r} already in index")
+        texts = [c["text"] for c in chunks]
+
+        t = time.time()
+        embeddings = self._embed(texts)
+        if self.distance_metric == "cosine":
+            embeddings = embeddings / np.maximum(np.linalg.norm(embeddings, axis=1, keepdims=True), 1e-12)
+        times["embed"] = time.time() - t
+        # 1. passages, offsets and ids, before the graph: a compact index
+        # re-encodes the new rows from their tokens
+        t = time.time()
+        with open(f"{prefix}.passages.jsonl", "ab") as f:
+            for c in chunks:
+                offsets[c["id"]] = f.tell()
+                f.write(json.dumps({"id": c["id"], "text": c["text"], "metadata": c.get("metadata", {})},
+                                   ensure_ascii=False).encode("utf-8"))
+                f.write(b"\n")
+        with open(f"{prefix}.passages.idx", "wb") as f:
+            pickle.dump(offsets, f)
+        if os.path.exists(f"{prefix}.ids.json"):
+            save_ids(prefix, load_ids(prefix) + [c["id"] for c in chunks])
+        times["passages"] = time.time() - t
+        # 2. token rows, cut to the store's T
+        t = time.time()
+        old = load_token_cache(prefix)
+        if old is not None:
+            from .embeddings.encoder import get_encoder
+
+            enc = get_encoder(self.embedding_model, max_length=meta.get("max_length", self.max_length),
+                              device=self.device)
+            old_tok, old_len = old
+            new_tok, new_mask = enc.tokenize(texts)
+            t_old = old_tok.shape[1]
+            lengths = np.minimum(new_mask.sum(axis=1), t_old).astype(np.int32)
+            all_tok = np.concatenate([old_tok, new_tok[:, :t_old].astype(old_tok.dtype)])
+            all_len = np.concatenate([old_len, lengths])
+            for stale in (f"{prefix}.tokens.npy", f"{prefix}.lengths.npy", f"{prefix}.tokens.npz"):
+                if os.path.exists(stale):
+                    os.remove(stale)  # a legacy store, superseded by the cache
+            write_token_cache(prefix, all_tok, all_len)
+        times["tokens"] = time.time() - t
+        # 3. the graph, in batches
+        t = time.time()
+        for s in range(0, len(chunks), insert_batch_size):
+            insert(prefix, embeddings[s : s + insert_batch_size], device=self.device)
+        times["insert"] = time.time() - t
+        # 4. meta
+        meta["num_chunks"] = n_old + len(chunks)
+        if meta.get("passage_sources"):
+            meta["passage_sources"][0]["count"] = meta["num_chunks"]
+        with open(f"{prefix}.meta.json", "w") as f:
+            json.dump(meta, f, indent=2)
+        times["total"] = time.time() - t0
+        logger.info("updated index %s: +%d chunks (%d total) in %.2fs",
+                    prefix, len(chunks), meta["num_chunks"], times["total"])
+
+    def build_index_from_embeddings(self, index_path: str, ids: Sequence[str], embeddings: np.ndarray,
+                                    texts: Optional[Sequence[str]] = None) -> None:
+        """Build from precomputed (ids, [N, D] embeddings). Without
+        ``texts`` the passages hold empty text and recompute and compact
+        storage are turned off (there is nothing to re-encode).
+
+        With ``distance_metric="cosine"`` the array may be normalized IN
+        PLACE (no second copy at scale). f16 input stays f16 into the
+        index; every product on the card casts its block anyway."""
+        if embeddings.dtype != np.float16:
+            embeddings = np.ascontiguousarray(embeddings, dtype=np.float32)
+        else:
+            embeddings = np.ascontiguousarray(embeddings)
+        if len(ids) != embeddings.shape[0]:
+            raise ValueError("ids/embeddings length mismatch")
+        factory = get_backend(self.backend_name)
+        self.dimensions = int(embeddings.shape[1])
+        prefix = str(index_path)
+        Path(prefix).parent.mkdir(parents=True, exist_ok=True)
+        self.phase_seconds.clear()
+        has_text = texts is not None
+        if not has_text:
+            texts = ["" for _ in ids]
+            if self.is_recompute:
+                logger.info("no texts supplied: disabling recompute, storing embeddings")
+                self.is_recompute = False
+                self.is_compact = False
+        chunks = [{"id": str(i), "text": t, "metadata": {}} for i, t in zip(ids, texts)]
+        source = _write_passages(chunks, prefix)
+        if has_text:
+            self._maybe_write_tokens(list(texts), prefix)
+        self._backend_build(factory, embeddings, [str(i) for i in ids], prefix)
+        self._write_meta(prefix, [source], n=len(ids))
+
     def _maybe_write_tokens(self, texts: List[str], prefix: str) -> None:
         """Tokenize passages for on-device recompute (u16 when the vocab
         allows), written as a derivable ``.cache.`` artifact."""
@@ -280,8 +425,17 @@ class LeannBuilder:
         if self.distance_metric == "cosine" and not self._is_unit_norm(embeddings):
             if not embeddings.flags.writeable:
                 embeddings = embeddings.copy()
-            norms = np.linalg.norm(embeddings, axis=1, keepdims=True)
-            np.divide(embeddings, np.maximum(norms, 1e-12), out=embeddings)
+            if embeddings.dtype == np.float16:
+                # f32 arithmetic per block, cast back in place: f16 norm sums
+                # lose ~2 digits, and a whole f32 copy undoes the f16 store
+                blk = 1 << 20
+                for s in range(0, embeddings.shape[0], blk):
+                    b32 = embeddings[s : s + blk].astype(np.float32)
+                    nb = np.linalg.norm(b32, axis=1, keepdims=True)
+                    embeddings[s : s + blk] = (b32 / np.maximum(nb, 1e-12)).astype(np.float16)
+            else:
+                norms = np.linalg.norm(embeddings, axis=1, keepdims=True)
+                np.divide(embeddings, np.maximum(norms, 1e-12), out=embeddings)
         builder = factory.builder(
             distance_metric=self.distance_metric,
             is_compact=self.is_compact,

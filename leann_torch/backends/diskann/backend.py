@@ -4,9 +4,14 @@ Counterpart of the JAX package's ``backends/diskann/backend.py`` for one
 card, writing and reading the same on-disk index:
 
   * build: exact k-NN candidates + α-prune + reverse fill (``ops/graph.py``),
-    OPQ/PQ codebooks and codes (``ops/pq.py``), the graph packed by
-    ``storage.pack_neighbors`` into ``<prefix>.diskann.npz``. On one card
-    there is one partition and the relayout is the identity.
+    then, with more than one partition, the LDG partition (``partition.py``,
+    on the host) and the relayout: rows are relabeled so that each
+    partition is contiguous (graph, data, ids, medoid and the token store);
+    then OPQ/PQ codebooks and codes (``ops/pq.py``), the graph packed by
+    ``storage.pack_neighbors`` into ``<prefix>.diskann.npz`` and the
+    partition counts into ``<prefix>.partition.npz``. ``num_partitions=0``
+    means one partition per card (one on the CPU), where the relayout is
+    the identity.
   * search: PQ-ADC traversal of the graph, then one exact pass over the
     pool head that re-encodes its passages from the token store
     (``ops/beam_search.py``). The store lives on the device, or, when it
@@ -19,6 +24,7 @@ card, writing and reading the same on-disk index:
 from __future__ import annotations
 
 import logging
+import os
 import time
 from typing import Dict, Optional
 
@@ -35,8 +41,9 @@ from ...ops.beam_search import BeamConfig, rerank_tokens_batch, unpack_results
 from ...ops.graph import build_graph
 from ...ops.pq import choose_m, encode_pq_blocked, lift_codebooks, train_opq, train_pq
 from ...registry import register_backend
-from ...storage import pack_neighbors, save_partition
+from ...storage import pack_neighbors, save_partition, token_cache_paths
 from ..common import GraphSearcher, _entry_pool, mips_augment, not_ported, save_ids
+from .partition import edge_locality, ldg_partition
 
 logger = logging.getLogger(__name__)
 
@@ -53,6 +60,7 @@ class DiskannBuilder(LeannBackendBuilderInterface):
         pq_subspaces: int = 0,
         pq_rotate: bool = True,
         num_partitions: int = 0,  # 0 = auto: one partition per card
+        partition_passes: int = 10,  # LDG refinement sweeps (the reference's gp_times)
         build_sharded: bool = False,
         build_checkpoint_dir: str = "",
         reverse_candidates: int = 0,
@@ -61,8 +69,6 @@ class DiskannBuilder(LeannBackendBuilderInterface):
     ):
         if build_sharded:
             raise not_ported("the mesh-sharded build", "ROADMAP.md, left for later #10")
-        if num_partitions > 1:
-            raise not_ported("LDG partitioning and relayout", "ROADMAP.md, left for later #6")
         self.device = resolve_device(device)
         self.distance_metric = distance_metric
         self.is_recompute = is_recompute
@@ -71,6 +77,10 @@ class DiskannBuilder(LeannBackendBuilderInterface):
         self.alpha = alpha
         self.pq_subspaces = pq_subspaces
         self.pq_rotate = pq_rotate
+        if num_partitions <= 0:
+            num_partitions = torch.cuda.device_count() if self.device.type == "cuda" else 1
+        self.num_partitions = num_partitions
+        self.partition_passes = partition_passes
         self.reverse_candidates = reverse_candidates
         self.build_checkpoint_dir = build_checkpoint_dir
         self.phase_seconds: Dict[str, float] = {}
@@ -91,7 +101,26 @@ class DiskannBuilder(LeannBackendBuilderInterface):
             checkpoint_dir=self.build_checkpoint_dir, reverse_candidates=self.reverse_candidates,
             device=self.device, phase_seconds=times,
         )
-        assign = np.zeros(n, np.int32)  # one partition: the relayout is the identity
+        n_parts = self.num_partitions
+        if n_parts > 1:
+            t0 = time.time()
+            assign = ldg_partition(neighbors, n_parts, passes=self.partition_passes)
+            times["ldg"] = time.time() - t0
+            # relayout: relabel nodes so each partition is contiguous
+            t0 = time.time()
+            order = np.argsort(assign, kind="stable").astype(np.int64)
+            new_of_old = np.empty(n, np.int64)
+            new_of_old[order] = np.arange(n)
+            neighbors = np.where(neighbors >= 0, new_of_old[np.clip(neighbors, 0, n - 1)], -1)[order].astype(np.int32)
+            data = data[order]
+            ids = [ids[i] for i in order]
+            medoid = int(new_of_old[medoid])
+            assign = assign[order]
+            self._permute_tokens(index_path, order)
+            times["relayout"] = time.time() - t0
+        else:
+            # one partition: the relayout is the identity (no copy of the matrix)
+            assign = np.zeros(n, np.int32)
 
         t0 = time.time()
         m = choose_m(d, self.pq_subspaces)
@@ -134,10 +163,33 @@ class DiskannBuilder(LeannBackendBuilderInterface):
             else:
                 payload["entry_emb"] = ee
         np.savez(f"{index_path}.diskann.npz", **payload)
-        save_partition(index_path, assign)
+        save_partition(index_path, assign)  # counts: the relayout makes the assignment a step function
         save_ids(index_path, ids)
         times["persist"] = time.time() - t0
-        logger.info("diskann build: N=%d R=%d M(pq)=%d", n, r, m)
+        logger.info("diskann build: N=%d R=%d M(pq)=%d parts=%d locality=%.2f", n, r, m, n_parts,
+                    edge_locality(neighbors, assign))
+
+    @staticmethod
+    def _permute_tokens(index_path: str, order: np.ndarray) -> None:
+        """The API layer writes the token store in the passages' order
+        before the backend builds; the relayout permutes it to the relabeled
+        rows. Its resume sidecar goes, so a later build into the same prefix
+        writes the store anew instead of permuting it twice."""
+        p = token_cache_paths(index_path)
+        for raw, lenp in ((p["raw"], p["raw_len"]), (p["legacy_raw"], p["legacy_raw_len"])):
+            if os.path.exists(raw):
+                np.save(raw, np.load(raw, mmap_mode="r")[order])
+                np.save(lenp, np.load(lenp)[order])
+                break
+        else:
+            for path in (p["npz"], p["legacy_npz"]):
+                if os.path.exists(path):
+                    z = np.load(path)
+                    np.savez_compressed(path, tokens=z["tokens"][order], lengths=z["lengths"][order])
+                    break
+        done = f"{index_path}.tokens.cache.done.json"
+        if os.path.exists(done):
+            os.remove(done)
 
 
 class DiskannSearcher(GraphSearcher, LeannBackendSearcherInterface):

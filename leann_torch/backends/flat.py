@@ -67,3 +67,12 @@ class FlatBackendFactory(LeannBackendFactoryInterface):
     @staticmethod
     def searcher(index_path: str, **kwargs) -> FlatSearcher:
         return FlatSearcher(index_path, **kwargs)
+
+    @staticmethod
+    def insert(index_path: str, embeddings: np.ndarray, **kwargs) -> int:
+        """An incremental insert is an append to the stored f32 matrix."""
+        path = f"{index_path}.flat.npz"
+        z = dict(np.load(path, allow_pickle=False))
+        z["embeddings"] = np.concatenate([z["embeddings"], np.ascontiguousarray(embeddings, dtype=np.float32)])
+        np.savez(path, **z)
+        return int(z["embeddings"].shape[0])

@@ -14,12 +14,16 @@ writing and reading the same ``<prefix>.hnsw.npz``:
     ``stored`` traversal on a non-compact index. ``prune_ratio=None``
     screens automatically on large indexes or searches (auto-prune guard);
     an explicit 0.0 stays unpruned.
+  * insert (:func:`insert_hnsw`): batched Vamana insertion of new rows
+    (``ops/insert.py``) into the stored graph, with their PQ codes, stored
+    embeddings and entry-pool seeds appended.
 """
 
 from __future__ import annotations
 
 import logging
 import math
+import os
 import time
 from typing import Any, Dict
 
@@ -33,10 +37,12 @@ from ...interface import (
 )
 from ...ops.beam_search import BeamConfig
 from ...ops.graph import build_graph
+from ...ops.insert import insert_batch
 from ...ops.pq import choose_m, encode_pq_blocked, lift_codebooks, train_opq, train_pq
 from ...registry import register_backend
-from ...storage import pack_neighbors
-from ..common import N_ENTRY_POINTS, GraphSearcher, _entry_pool, mips_augment, not_ported, save_ids
+from ...storage import pack_neighbors, unpack_neighbors
+from ..common import (ENTRY_POOL_SIZE, N_ENTRY_POINTS, GraphSearcher, _entry_pool, _pool_cap, mips_augment,
+                      not_ported, save_ids)
 
 logger = logging.getLogger(__name__)
 
@@ -211,6 +217,57 @@ class HnswSearcher(GraphSearcher, LeannBackendSearcherInterface):
         return cfg, enc_params
 
 
+def insert_hnsw(index_path: str, new_emb: np.ndarray, ef: int = 64, alpha: float = 1.2,
+                device: str = "cuda") -> int:
+    """Insert ``new_emb`` [B, D] (already metric-normalized) into an existing
+    hnsw index by batched Vamana insertion (``ops/insert.py``) -> the new N.
+    The API layer appends the passages and tokens first, so that a compact
+    index can re-encode the new rows."""
+    path = f"{index_path}.hnsw.npz"
+    z = dict(np.load(path, allow_pickle=False))
+    old_rows = unpack_neighbors(z)
+    for k in ("neighbors", "neighbors_packed", "neighbors_n", "neighbors_r"):
+        z.pop(k, None)
+    searcher = HnswSearcher(index_path, device=device)
+    new_emb = np.ascontiguousarray(new_emb, dtype=np.float32)
+    n_old = int(old_rows.shape[0])
+
+    new_rows, touched, touched_rows = insert_batch(searcher, new_emb, ef=ef, alpha=alpha)
+    neighbors = np.concatenate([old_rows, new_rows.astype(old_rows.dtype)])
+    if touched.size:
+        neighbors[touched] = touched_rows
+    z.update(pack_neighbors(neighbors))
+    if "codes" in z:
+        cb = z["codebooks"]
+        if "pq_rotation" in z:
+            cb = lift_codebooks(z["pq_rotation"], cb)
+        z["codes"] = np.concatenate([z["codes"], encode_pq_blocked(new_emb, cb, device=device)])
+    if "embeddings" in z:  # in the stored dtype (an f16 store stays f16)
+        z["embeddings"] = np.concatenate([z["embeddings"], new_emb.astype(z["embeddings"].dtype)])
+    # the entry pool keeps covering the appended rows: the builder's cap at
+    # the new N, or up to min(N, ENTRY_POOL_SIZE) on small indexes, whose
+    # inserted rows are reachable only through local repair; without a
+    # screen the small fixed set
+    n_new = int(neighbors.shape[0])
+    if ("codes" in z) or ("embeddings" in z):
+        pool_cap = max(_pool_cap(n_new), min(n_new, ENTRY_POOL_SIZE))
+    else:
+        pool_cap = N_ENTRY_POINTS
+    room = pool_cap - z["entries"].shape[0]
+    if room > 0:
+        step = max(1, new_emb.shape[0] // max(room, 1))
+        extra = np.arange(n_old, n_old + new_emb.shape[0], step, dtype=np.int32)[:room]
+        z["entries"] = np.concatenate([z["entries"], extra])
+        if "entry_emb" in z:  # row-aligned with the entries
+            z["entry_emb"] = np.concatenate([z["entry_emb"], new_emb[extra - n_old].astype(z["entry_emb"].dtype)])
+        cache = f"{index_path}.entries.cache.npy"  # stale: the next load derives it again
+        if os.path.exists(cache):
+            os.remove(cache)
+    np.savez(path, **z)
+    logger.info("hnsw insert: %d -> %d nodes (%d rows repaired)", n_old, n_new, touched.size)
+    return n_new
+
+
 @register_backend("hnsw")
 class HnswBackendFactory(LeannBackendFactoryInterface):
     @staticmethod
@@ -223,4 +280,4 @@ class HnswBackendFactory(LeannBackendFactoryInterface):
 
     @staticmethod
     def insert(index_path: str, embeddings: np.ndarray, **kwargs) -> int:
-        raise not_ported("insert_hnsw (incremental insert)", "ROADMAP.md, left for later #5")
+        return insert_hnsw(index_path, embeddings, **kwargs)

@@ -289,6 +289,14 @@ class TorchEncoder:
     def tokenize(self, texts: Sequence[str], max_length: Optional[int] = None) -> Tuple[np.ndarray, np.ndarray]:
         return self.tokenizer.encode_batch(texts, max_length or self.cfg.max_len)
 
+    @torch.no_grad()
+    def encode_token_batch(self, ids, mask) -> torch.Tensor:
+        """Token rows ids [B, T] and mask [B, T] (numpy or tensors) -> pooled
+        embeddings f32 [B, D] on the encoder's device (the JAX package's
+        returns a host array)."""
+        return encode_tokens(self.params, torch.as_tensor(ids).to(self.device),
+                             torch.as_tensor(mask).to(self.device), self.cfg)
+
     def encode(self, texts: Sequence[str], batch_size: int = 128) -> np.ndarray:
         """Encode texts -> [N, D] float32 (host), bucketing T to a power of
         two >= 16 and B to a power of two >= 8. The output stays on the
@@ -307,10 +315,7 @@ class TorchEncoder:
                 ids = np.concatenate([ids, np.zeros((pad, T), np.int32)])
                 mask = np.concatenate([mask, np.zeros((pad, T), np.int32)])
                 mask[len(chunk):, 0] = 1  # avoid 0/0 in pooling
-            with torch.no_grad():
-                emb = encode_tokens(self.params, torch.from_numpy(ids).to(self.device),
-                                    torch.from_numpy(mask).to(self.device), self.cfg)
-            out[start : start + len(chunk)] = emb[: len(chunk)]
+            out[start : start + len(chunk)] = self.encode_token_batch(ids, mask)[: len(chunk)]
         return out.cpu().numpy()
 
 

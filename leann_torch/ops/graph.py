@@ -33,7 +33,7 @@ from typing import Dict, Optional, Tuple
 import numpy as np
 import torch
 
-from ..device import resolve_device
+from ..device import f32_matmuls, resolve_device
 from .distance import INF
 from .knn_panel import knn_panel, knn_panel_ext, topk_merge, upload_panel_inputs
 from .pq import _bucket_sample, decode_pq, encode_pq, train_pq
@@ -274,6 +274,13 @@ def exact_knn_sharded(
         shard_done = q_resume = 0
         if checkpoint_dir:
             os.makedirs(checkpoint_dir, exist_ok=True)
+            # a discarded state goes before the new one is written: a killed
+            # run in this process may still map it (the JAX package's queued
+            # computations read its slices without a copy), and truncating
+            # a mapped file faults its readers (SIGBUS)
+            for path in (sd_path, si_path):
+                if os.path.exists(path):
+                    os.remove(path)
             run_d = np.lib.format.open_memmap(sd_path, mode="w+", dtype=np.float32, shape=(n, k))
             run_i = np.lib.format.open_memmap(si_path, mode="w+", dtype=np.int32, shape=(n, k))
         else:
@@ -455,6 +462,27 @@ def _robust_prune_pq_device(codes: torch.Tensor, codebooks: torch.Tensor, pe: to
         d_cc = cn[:, :, None] + cn[:, None, :] - 2.0 * cc
         out.append(_prune_select(cid, d_pc, d_cc, r, alpha, keep_closest))
     return torch.cat(out)
+
+
+@f32_matmuls()
+def robust_prune_explicit(p_emb: torch.Tensor, cand_ids: torch.Tensor, cand_emb: torch.Tensor, r: int,
+                          alpha: float, keep_closest: int) -> torch.Tensor:
+    """Vamana robust prune over explicit candidate embeddings: p_emb f32
+    [B, D] of the nodes, cand_ids [B, C] (-1 invalid), cand_emb f32
+    [B, C, D] -> selected ids i64[B, R]. The incremental insert's variant of
+    :func:`_robust_prune_device`: its candidates come from a search of the
+    live index, whose embeddings may exist only as re-encodes, so the caller
+    passes the gathered block. Products of bf16-rounded operands in f32,
+    squared norms of the f32 rows, as the JAX package's einsums."""
+    pe = p_emb.to(torch.bfloat16).float()
+    ce = cand_emb.to(torch.bfloat16).float()
+    pn = p_emb.float().square().sum(dim=1)
+    cn = cand_emb.float().square().sum(dim=-1)
+    dots = torch.bmm(ce, pe[:, :, None])[:, :, 0]
+    cid = cand_ids.long()
+    d_pc = torch.where(cid >= 0, pn[:, None] + cn - 2.0 * dots, torch.full_like(dots, INF))
+    d_cc = cn[:, :, None] + cn[:, None, :] - 2.0 * torch.bmm(ce, ce.transpose(1, 2))
+    return _prune_select(cid, d_pc, d_cc, r, alpha, keep_closest)
 
 
 def _prune_pq_mode(emb: np.ndarray, cand_h: np.ndarray, r: int, alpha: float, keep_closest: int, blk: int,

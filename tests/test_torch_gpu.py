@@ -220,3 +220,47 @@ def test_running_state_merge_matches_plain(cuda, k):
     assert torch.equal(got_i.cpu(), want_i) and torch.equal(got_d.cpu(), want_d)
     again = kp.topk_merge(v, i)
     assert torch.equal(again[0], got_i) and torch.equal(again[1], got_d)
+
+
+def test_update_index_on_the_card_matches_the_cpu(cuda, tmp_path):
+    """update_index of a small hnsw index on the card against the same
+    update with device="cpu": the graph rows agree as sets, and searches of
+    both updated indexes give the same labels."""
+    import json
+    import shutil
+
+    from leann_torch import LeannBuilder, LeannSearcher
+
+    rng = np.random.default_rng(9)
+    vocab = [f"w{i}" for i in range(300)]
+
+    def texts(n, tag):
+        return [f"{tag}{i} " + " ".join(rng.choice(vocab, 14)) for i in range(n)]
+
+    base, new = texts(600, "base"), texts(48, "new")
+    src = tmp_path / "src"
+    b = LeannBuilder(embedding_model="hash-tiny", max_length=32, M=8, device="cuda")
+    for t in base:
+        b.add_text(t)
+    b.build_index(str(src / "x.leann"))
+    prefixes = {}
+    for dev in ("cuda", "cpu"):
+        shutil.copytree(src, tmp_path / dev)
+        prefix = str(tmp_path / dev / "x.leann")
+        meta = json.load(open(prefix + ".meta.json"))
+        meta["passage_sources"][0].update(path=prefix + ".passages.jsonl", index_path=prefix + ".passages.idx")
+        json.dump(meta, open(prefix + ".meta.json", "w"))
+        u = LeannBuilder.from_index(prefix, device=dev)
+        for t in new:
+            u.add_text(t)
+        u.update_index(prefix, insert_batch_size=24)
+        prefixes[dev] = prefix
+    from leann_torch.storage import unpack_neighbors
+
+    rows = [unpack_neighbors(np.load(prefixes[d] + ".hnsw.npz")).tolist() for d in ("cuda", "cpu")]
+    assert len(rows[0]) == len(rows[1]) == 648
+    assert np.mean([set(a) == set(c) for a, c in zip(*rows)]) >= 0.95
+    queries = [" ".join(t.split()[:8]) for t in new[:8] + base[:8]]
+    labels = [[[r.id for r in row] for row in LeannSearcher(prefixes[d], device="cuda").search(
+        queries, top_k=3, complexity=32, beam_width=4)] for d in ("cuda", "cpu")]
+    assert labels[0] == labels[1]

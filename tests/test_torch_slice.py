@@ -19,7 +19,10 @@ KW = dict(top_k=3, complexity=32, beam_width=4)
 
 def _build(pkg, backend, chunks, prefix):
     kwargs = {"device": "cpu"} if pkg.__name__ == "leann_torch" else {}
-    kwargs.update({"hnsw": {"M": 16}, "diskann": {"graph_degree": 16}}.get(backend, {}))
+    # diskann at one partition on both sides (the JAX package's default is one
+    # per device: 8 on the tests' CPU mesh); partitioned builds are compared
+    # in test_torch_partition.py
+    kwargs.update({"hnsw": {"M": 16}, "diskann": {"graph_degree": 16, "num_partitions": 1}}.get(backend, {}))
     b = pkg.LeannBuilder(backend_name=backend, embedding_model="hash-tiny", max_length=64, **kwargs)
     for c in chunks:
         b.add_text(c)
@@ -81,8 +84,15 @@ def test_same_on_disk_layout(indexes):
     assert set(zt.files) == set(zj.files)
     for f in zt.files:  # the deflated graph's length follows its content
         assert zt[f].dtype == zj[f].dtype and (zt[f].shape == zj[f].shape or f == "neighbors_packed"), f
-    if paths["backend"] == "hnsw":  # (the JAX diskann build relabels its rows)
+    if paths["backend"] == "hnsw":
         assert (zt["entries"] == zj["entries"]).all() and int(zt["medoid"]) == int(zj["medoid"])
+    if paths["backend"] == "diskann":  # one partition each: the relayout is the identity on both sides
+        from leann_torch.storage import load_ids
+
+        assert (zt["entries"] == zj["entries"]).all() and int(zt["medoid"]) == int(zj["medoid"])
+        assert load_ids(paths["torch"]) == load_ids(paths["jax"])
+        pt, pj = np.load(paths["torch"] + ".partition.npz"), np.load(paths["jax"] + ".partition.npz")
+        assert pt["counts"].tolist() == pj["counts"].tolist() == [mt["num_chunks"]]
     for suffix in (".entries.cache.npy", ".tokens.cache.npz", ".ids.json", ".passages.jsonl"):
         assert Path(paths["torch"] + suffix).exists() and Path(paths["jax"] + suffix).exists()
 
@@ -155,22 +165,27 @@ def test_default_backend_is_hnsw(tmp_path):
 
 def test_unported_backend_raises():
     """Every backend of the JAX package is registered; what the port still
-    lacks of the hnsw backend raises naming its ROADMAP.md item."""
+    lacks of the graph backends raises naming its ROADMAP.md item. The hnsw
+    and flat inserts are ported (diskann has none, as in the JAX package)."""
     from leann_torch.registry import get_backend, get_registered_backends
 
     assert get_registered_backends() == ["diskann", "flat", "hnsw"]
     hnsw = get_backend("hnsw")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md, left for later #5"):
-        hnsw.insert("any.leann", np.zeros((1, 8), np.float32))
-    with pytest.raises(NotImplementedError, match="ROADMAP.md, left for later #10"):
-        hnsw.builder(build_sharded=True, device="cpu")
+    assert [hasattr(get_backend(b), "insert") for b in ("diskann", "flat", "hnsw")] == [False, True, True]
+    with pytest.raises(FileNotFoundError):
+        hnsw.insert("no-such-index.leann", np.zeros((1, 8), np.float32), device="cpu")
+    for backend in ("hnsw", "diskann"):
+        with pytest.raises(NotImplementedError, match="ROADMAP.md, left for later #10"):
+            get_backend(backend).builder(build_sharded=True, device="cpu")
+    # LDG partitioning is ported: the builder takes a partition count
+    assert get_backend("diskann").builder(num_partitions=4, device="cpu").num_partitions == 4
     # the checkpointed build is ported: the builder takes its directory
     assert hnsw.builder(build_checkpoint_dir="ckpt", device="cpu").build_checkpoint_dir == "ckpt"
 
 
 def test_import_pulls_in_no_jax():
     code = ("import sys, leann_torch, leann_torch.backends.diskann, leann_torch.backends.flat, "
-            "leann_torch.backends.hnsw; "
+            "leann_torch.backends.hnsw, leann_torch.repack, leann_torch.backends.diskann.partition; "
             "bad = [m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'leann_tpu'))]; "
             "print(bad); sys.exit(1 if bad else 0)")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True, timeout=120)
@@ -186,7 +201,7 @@ def test_no_jax_or_leann_tpu_in_port_sources():
 
     banned = re.compile(r"^\s*(import|from)\s+(jax|leann_tpu)\b|\bleann_tpu\.|\bimport_module\(\s*['\"]jax",
                         re.MULTILINE)
-    files = [p for p in (REPO / "leann_torch").rglob("*") if p.suffix in (".py", ".cu", ".cuh")]
+    files = [p for p in (REPO / "leann_torch").rglob("*") if p.suffix in (".py", ".cu", ".cuh", ".cpp")]
     files.append(REPO / "chip_smoke.py")
     assert len(files) > 10
     for p in files:
