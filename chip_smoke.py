@@ -6,8 +6,9 @@
 Phases, each printing one JSON line (a failure exits non-zero before the
 final line):
   1. device: the card (nvidia-smi name and power limit), torch and CUDA
-     versions; builds both CUDA kernels with nvcc and the LDG partitioner
-     with the host compiler (build/leann_torch/, all at once) and prints
+     versions; builds both CUDA kernels with nvcc and the LDG partitioner,
+     the hash tokenizer and the passage store with the host compiler
+     (build/leann_torch/, all at once) and prints
      ptxas's registers / spills and, from `cuobjdump -sass`, how many wgmma
      (HGMMA) and TMA load (UTMALDG) instructions each kernel library holds.
   2. flat top-k kernel (csrc/flat_topk.cu) against its plain PyTorch version
@@ -26,10 +27,12 @@ final line):
      overlap >= 0.99999 and max abs error <= 1e-5).
      Phases 2-3 time each kernel and each library call as device time: the
      summed time of the CUDA kernels one call launches, from torch.profiler
-     over 10 calls (`kernel_ms`, `library_ms`); each kernel's records must
-     number a multiple of the calls, else the profile is taken again, and
-     the run fails after three. `call_ms` is the wall time of the wrapper
-     between CUDA events, host work included. Two launches at the main
+     over 10 calls after 2 untimed ones (`kernel_ms`, `library_ms`); each
+     kernel's records must number a multiple of the calls, else the profile
+     is taken again, and after five the time is the call's wall time between
+     CUDA events, named so in `ms_source` / `library_ms_source`. `call_ms`
+     is the wall time of the wrapper between CUDA events, host work
+     included. Two launches at the main
      path's shape must give bit-identical ids and distances.
   4. main path: 100,000 synthetic chunks -> LeannBuilder(diskann,
      hash-minilm, max_length=128, graph_degree=32).build_index, a flat index
@@ -90,7 +93,24 @@ final line):
      0.80). Each path's kernels (B1 on the updated oracle, B2 at k = 64 and
      128 on these embeddings) are checked against their plain versions and
      timed.
-  9. the kernels line: per kernel, path and k its launches on that path
+  9. a real checkpoint, served: a checkpoint directory at the widths of
+     all-MiniLM-L6-v2's published config.json (vocab 30,522, hidden 384, 6
+     layers, 12 heads, MLP 1,536, 512 positions; seeded weights written by
+     the port's save_hf_weights, an uncased WordPiece vocab.txt that covers
+     the corpus) drives LeannBuilder(embedding_model=<dir>) over phase 4's
+     chunks: a diskann build at phase 4's settings and a flat oracle, each
+     loading the weights and the WordPiece and calibrating on the corpus
+     (<prefix>.calib.npz, equal in both). Fails unless the checkpoint
+     loaded, no corpus token is [UNK], the diskann build launched the k-NN
+     panel kernel once at k = 64 and the oracle flat_topk once at k = 3,
+     recall@3 of the 64 queries >= 0.80, the same queries from 8 threads
+     through BatchedSearcher(max_batch=16, max_wait_ms=2) give the direct
+     search's labels (a differing label is printed with its score gap, and
+     only gaps under 1e-5 pass), the native hash tokenizer gives the Python
+     path's ids on all 100,000 chunks and the native passage store the
+     offset map's texts on 10,000 lookups (both paths timed), and both
+     kernels agree with their plain versions on this path's inputs.
+ 10. the kernels line: per kernel, path and k its launches on that path
      (each path's counts set to 0 just before it and read just after), its
      device time and call time, its plain version's and a library call's
      time at that path's shapes, and its bound on the card.
@@ -106,6 +126,7 @@ import shutil
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 from pathlib import Path
 
@@ -115,6 +136,8 @@ REPO = Path(__file__).resolve().parent
 # H100 SXM data-sheet peaks (dense): HBM bytes/s and bf16 tensor-core FLOP/s
 PEAK_BYTES_S = 3.35e12
 PEAK_BF16_FLOP_S = 989e12
+# the diskann searches of phases 4, 7 and 9 (bench.py:128's settings)
+SEARCH_KW = dict(top_k=3, complexity=128, beam_width=4)
 
 
 def emit(obj) -> None:
@@ -184,24 +207,35 @@ def _device_us(evt) -> float:
 
 
 # seconds of idle time before a profile's calls: grown when a profile loses
-# records, and kept for the next
+# records, up to PROFILE_PAD_MAX_S, and kept for the next. Losses were seen
+# at pads of 4-32 s as well, and a pad that doubled to 64 s took a run past
+# its time limit, so the pad stops at 4 s.
 _PROFILE_PAD = [0.0]
+PROFILE_PAD_MAX_S = 4.0
+_TIMED = "chip_smoke_timed_calls"
+PROFILE_UNTIMED_CALLS = 2
 
 
-def device_ms(torch, fn, reps: int = 10, attempts: int = 4):
+def device_ms(torch, fn, reps: int = 10, attempts: int = 5):
     """Summed device time of the CUDA kernels ``fn`` launches, per call, and
-    the same by kernel name: torch.profiler over ``reps`` calls after one
-    warm-up -> (ms, ms by kernel, {attempts, pad_s}). Every call launches the same
-    kernels, so each kernel's count of records must be a multiple of
-    ``reps``. The profiler can lose the records of the first kernels of a
-    profile, more often late in a long process: every loss seen so far was
-    at the start of the window (the first kept record a fraction of a
-    millisecond after the first launch, the last one ending well inside the
-    window). A profile that lost records is printed, with the offsets of its
-    kernels from the host events around them, and taken again after twice
-    the idle time before its calls; after ``attempts`` the run fails: no
-    other clock stands in for device time."""
-    from torch.profiler import ProfilerActivity, profile
+    the same by kernel name: torch.profiler over ``reps`` calls -> (ms, ms
+    by kernel, {attempts, pad_s, source}). Inside the profile
+    ``PROFILE_UNTIMED_CALLS`` untimed calls come first, then the ``reps``
+    timed ones in a marked range; only the kernels that start inside the
+    range are summed. Every
+    call launches the same kernels, so each kernel's count of records there
+    must be a multiple of ``reps``. The profiler can lose the records of the
+    first kernels of a profile, more often late in a long process (every
+    loss seen was at the start of the window, and some profiles came back
+    empty): the untimed calls take such a loss. A profile that lost records
+    is printed, with the offsets of its kernels from the host events around
+    them, and taken again after twice the idle time before its calls (at
+    most ``PROFILE_PAD_MAX_S``). No incomplete profile is used: after
+    ``attempts`` the time is the call's wall time between CUDA events
+    (:func:`cuda_ms`, host work in the call included), and the source says
+    so ("cuda events"); every row and the kernels line carry the source of
+    both the kernel's and the library call's time."""
+    from torch.profiler import ProfilerActivity, profile, record_function
 
     for attempt in range(1, attempts + 1):
         pad = _PROFILE_PAD[0]
@@ -209,31 +243,42 @@ def device_ms(torch, fn, reps: int = 10, attempts: int = 4):
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA], acc_events=True) as prof:
             time.sleep(pad)
-            for _ in range(reps):
+            for _ in range(PROFILE_UNTIMED_CALLS):
                 fn()
             torch.cuda.synchronize()
+            time.sleep(0.01)  # the untimed calls' kernels end well before the range
+            with record_function(_TIMED):
+                for _ in range(reps):
+                    fn()
+                torch.cuda.synchronize()
+        evts = prof.events()
+        # the range is kept on the host and, as an annotation, on the device
+        marks = [e.time_range for e in evts if e.name == _TIMED and str(e.device_type).endswith("CPU")]
+        cut = marks[0].start - 5e3 if marks else float("inf")  # us: half the gap after the untimed calls
+        timed = [e for e in evts if str(e.device_type).endswith("CUDA") and e.name != _TIMED
+                 and e.time_range.start >= cut]
         by_kernel, counts = {}, {}
-        for e in prof.key_averages():
-            if str(e.device_type).endswith("CUDA") and _device_us(e) > 0:
-                by_kernel[e.key] = by_kernel.get(e.key, 0.0) + _device_us(e) / 1e3 / reps
-                counts[e.key[:60]] = counts.get(e.key[:60], 0) + e.count
+        for e in timed:
+            if _device_us(e) > 0:
+                by_kernel[e.name] = by_kernel.get(e.name, 0.0) + _device_us(e) / 1e3 / reps
+                counts[e.name[:60]] = counts.get(e.name[:60], 0) + 1
         if by_kernel and all(c % reps == 0 for c in counts.values()):
             parts = {}  # names shortened for printing only; kernels that share a prefix add up
             for key, ms in by_kernel.items():
                 parts[key[:60]] = parts.get(key[:60], 0.0) + ms
-            return sum(by_kernel.values()), parts, {"attempts": attempt, "pad_s": pad}
-        evts = prof.events()
-        launches = [e.time_range for e in evts if "LaunchKernel" in e.name]
+            return sum(by_kernel.values()), parts, {"attempts": attempt, "pad_s": pad, "source": "torch.profiler"}
+        launches = [e.time_range for e in evts if "LaunchKernel" in e.name and e.time_range.start >= cut]
         syncs = [e.time_range for e in evts if "Synchronize" in e.name]
-        kernels = [e.time_range for e in evts if str(e.device_type).endswith("CUDA")]
+        kernels = [e.time_range for e in timed]
         emit({"phase": "profiler_lost_records", "attempt": attempt, "pad_s": pad, "reps": reps, "records": counts,
-              "launch_records": len(launches),
+              "marked": bool(marks), "launch_records": len(launches),
               "first_kernel_after_first_launch_ms": (min(k.start for k in kernels) - launches[0].start) / 1e3
               if kernels and launches else None,
               "last_kernel_end_after_sync_end_ms": (max(k.end for k in kernels) - syncs[-1].end) / 1e3
               if kernels and syncs else None})
-        _PROFILE_PAD[0] = max(0.5, 2 * pad)
-    fail(f"torch.profiler lost kernel records in {attempts} profiles of {reps} calls: {counts}")
+        _PROFILE_PAD[0] = min(PROFILE_PAD_MAX_S, max(0.5, 2 * pad))
+    emit({"phase": "profiler_gave_up", "attempts": attempts, "reps": reps, "records": counts})
+    return cuda_ms(torch, fn, reps), {}, {"attempts": attempts, "pad_s": pad, "source": "cuda events"}
 
 
 def sass_counts(path, opcodes=("HGMMA", "UTMALDG")):
@@ -299,12 +344,13 @@ def phase_flat_topk(torch, dev, rng):
                 lib = lambda: torch.topk(2.0 * (qb @ e.T).float() - en, k)  # noqa: E731
             else:
                 lib = lambda: torch.topk(qb @ e.T, k)  # noqa: E731
-            l_ms = device_ms(torch, lib)[0]
+            l_ms, _, l_att = device_ms(torch, lib)
             n_bytes = n * d * 2 + b * d * 4 + (n * 4 if metric == "l2" else 0) + b * k * 8
             b_ms, b_by = bound(n_bytes, 2.0 * b * n * d)
             row = {"phase": "flat_topk", "metric": metric, "k": k, "shape": [b, n, d], "overlap": ov,
                    "max_rel_err": rel, "max_abs_err": err, "deterministic": same, "kernel_ms": k_ms,
-                   "kernel_parts_ms": k_parts, "profile": k_att, "call_ms": c_ms, "plain_ms": p_ms, "library_ms": l_ms, "bound_ms": b_ms, "bound_by": b_by,
+                   "kernel_parts_ms": k_parts, "profile": k_att, "call_ms": c_ms, "plain_ms": p_ms, "library_ms": l_ms, "library_profile": l_att, "bound_ms": b_ms,
+                   "bound_by": b_by,
                    "ok": bool(ok and same)}
             emit(row)
             if not ok:
@@ -357,14 +403,14 @@ def phase_knn_panel(torch, dev, rng):
                 qq = ebf[s : s + 1024]
                 torch.topk(2.0 * (qq @ ebf[:n_real].T).float() - norms[:n_real], k)
 
-        l_ms = device_ms(torch, lib)[0]
+        l_ms, _, l_att = device_ms(torch, lib)
         n_bytes = n * d * 2 + n * 4 + q_count * k * 8
         b_ms, b_by = bound(n_bytes, 2.0 * q_count * n_real * d)
         row = {"phase": "knn_panel", "shape": [q_count, n, d], "n_real": n_real, "k": k, "overlap": ov,
                "max_abs_err": err, "self_hits": self_hits, "pad_hits": pad_hits, "deterministic": same,
                "kernel_ms": k_ms, "kernel_parts_ms": k_parts, "profile": k_att, "call_ms": c_ms,
                "plain_ms": p_ms,
-               "library_ms": l_ms, "bound_ms": b_ms,
+               "library_ms": l_ms, "library_profile": l_att, "bound_ms": b_ms,
                "bound_by": b_by, "ok": bool(ok and same)}
         emit(row)
         if not ok:
@@ -412,8 +458,8 @@ def phase_main_path(torch, workdir: str):
     from leann_torch.ops.knn_panel import knn_panel
     from leann_torch.storage import index_all_in_bytes
 
-    rng = np.random.default_rng(0)
     t0 = time.time()
+    rng = np.random.default_rng(0)
     chunks = synth_corpus(100_000, rng)
     q_idx = rng.choice(len(chunks), 64, replace=False)
     queries = [" ".join(chunks[i].split()[:12]) for i in q_idx]
@@ -446,7 +492,7 @@ def phase_main_path(torch, workdir: str):
     oracle.build_index(oracle_prefix)
 
     searcher = LeannSearcher(prefix)
-    kw = dict(top_k=3, complexity=128, beam_width=4)
+    kw = SEARCH_KW
     searcher.search(queries, **kw)  # warm
     torch.cuda.synchronize()
     t = time.time()
@@ -561,10 +607,10 @@ def timed_row(torch, kernel, p_ms: float, lib, n_bytes: float, flops: float, rep
     card."""
     k_ms, k_parts, k_att = device_ms(torch, kernel, reps=reps)
     c_ms = cuda_ms(torch, kernel, reps=reps)
-    l_ms = device_ms(torch, lib, reps=reps)[0]
+    l_ms, _, l_att = device_ms(torch, lib, reps=reps)
     b_ms, b_by = bound(n_bytes, flops)
     return {"kernel_ms": k_ms, "kernel_parts_ms": k_parts, "profile": k_att, "call_ms": c_ms,
-            "plain_ms": p_ms, "library_ms": l_ms,
+            "plain_ms": p_ms, "library_ms": l_ms, "library_profile": l_att,
             "bound_ms": b_ms, "bound_by": b_by}
 
 
@@ -1145,6 +1191,222 @@ def phase_lifecycle(torch, dev, workdir: str, main: dict):
     return kr, launches
 
 
+# all-MiniLM-L6-v2's published config.json: its widths, 12 heads, 512 positions
+MINILM_L6 = dict(vocab_size=30522, dim=384, n_layers=6, n_heads=12, mlp_dim=1536, max_len=512)
+
+
+def minilm_checkpoint(path: str) -> dict:
+    """A checkpoint directory at all-MiniLM-L6-v2's widths: seeded weights
+    (``init_params`` at that config) written by the port's
+    ``save_hf_weights``, an uncased WordPiece ``vocab.txt`` of 30,522 lines
+    and its ``tokenizer_config.json``. The vocab holds the special tokens,
+    every letter and digit whole and as a ``##`` piece, the two-digit
+    ``##`` pieces, the corpus words w0..w19999 whole, and ``[unusedN]``, so
+    each ``synth_corpus`` word is covered (w20000 and up, g* and d* words as
+    a stem and ``##`` continuations) and no token is ``[UNK]``."""
+    from dataclasses import replace
+
+    from leann_torch.embeddings import encoder as te
+
+    cfg = replace(te.EncoderConfig(), name="minilm-l6-seeded", arch="bert", **MINILM_L6)
+    te.save_hf_weights(te.init_params(cfg), cfg, path)
+    chars = list("abcdefghijklmnopqrstuvwxyz0123456789")
+    vocab = ["[PAD]", "[UNK]", "[CLS]", "[SEP]", "[MASK]"] + chars + ["##" + c for c in chars]
+    vocab += [f"##{i:02d}" for i in range(100)] + [f"w{i}" for i in range(20_000)]
+    vocab += [f"[unused{i}]" for i in range(MINILM_L6["vocab_size"] - len(vocab))]
+    with open(os.path.join(path, "vocab.txt"), "w") as f:
+        f.write("\n".join(vocab) + "\n")
+    with open(os.path.join(path, "tokenizer_config.json"), "w") as f:
+        json.dump({"do_lower_case": True, "tokenizer_class": "BertTokenizer", "model_max_length": 512}, f)
+    with open(os.path.join(path, "config.json")) as f:
+        return json.load(f)
+
+
+def phase_checkpoint(torch, dev, workdir: str, chunks, queries):
+    """Phase 9 -> (kernel rows by (kernel, path), launches by path)."""
+    from leann_torch import BatchedSearcher, LeannBuilder, LeannSearcher
+    from leann_torch.api import PassageManager
+    from leann_torch.embeddings.encoder import get_encoder
+    from leann_torch.embeddings.tokenizer import HashTokenizer, HFTokenizer
+    from leann_torch.ops import graph
+    from leann_torch.ops import knn_panel as kp
+    from leann_torch.ops.distance import flat_search, pad_features
+    from leann_torch.ops.flat_topk import flat_topk
+    from leann_torch.storage import index_all_in_bytes, load_token_cache
+
+    counters = (flat_topk, kp.knn_panel, kp.knn_panel_ext, kp.topk_merge)
+    launches = {}
+    ckpt = os.path.join(workdir, "minilm-l6-seeded")
+    t = time.time()
+    hf_config = minilm_checkpoint(ckpt)
+    write_s = time.time() - t
+
+    # the diskann build and the flat oracle from the directory
+    prefix = os.path.join(workdir, "ckpt_diskann.leann")
+    oracle_prefix = os.path.join(workdir, "ckpt_flat.leann")
+    seen = {}
+    real_exact_knn = graph.exact_knn
+
+    def recording_exact_knn(emb, k, *a, **kw):  # keeps the build's embeddings and k; launches nothing itself
+        seen["emb"], seen["k"] = emb, k
+        return real_exact_knn(emb, k, *a, **kw)
+
+    _reset(counters)
+    builder = LeannBuilder(backend_name="diskann", embedding_model=ckpt, max_length=128, graph_degree=32)
+    for c in chunks:
+        builder.add_text(c)
+    graph.exact_knn = recording_exact_knn
+    try:
+        torch.cuda.synchronize()
+        builder.build_index(prefix)
+        torch.cuda.synchronize()
+    finally:
+        graph.exact_knn = real_exact_knn
+    launches["checkpoint_diskann"] = _counts(counters)
+    build_phases = dict(builder.phase_seconds)
+    enc = get_encoder(ckpt, max_length=128, device=dev)
+    tok, tok_lengths = load_token_cache(prefix)
+    unk_share = float((tok == enc.tokenizer.unk_id).mean()) if isinstance(enc.tokenizer, HFTokenizer) else None
+
+    _reset(counters)
+    oracle = LeannBuilder(backend_name="flat", embedding_model=ckpt, max_length=128)
+    for c in chunks:
+        oracle.add_text(c)
+    oracle.build_index(oracle_prefix)
+    oracle_searcher = LeannSearcher(oracle_prefix)
+    truth = oracle_searcher.search(queries, top_k=3)
+    torch.cuda.synchronize()
+    launches["checkpoint_oracle"] = _counts(counters)
+    calib = {name: np.load(p + ".calib.npz") for name, p in (("diskann", prefix), ("flat", oracle_prefix))
+             if os.path.exists(p + ".calib.npz")}
+    calib_diff = (max(float(np.abs(calib["diskann"][k] - calib["flat"][k]).max()) for k in ("out_center", "out_pc"))
+                  if len(calib) == 2 else None)
+
+    # the searches: direct, then the same queries from 8 threads through the batcher
+    searcher = LeannSearcher(prefix)
+    got, ms_q = _timed_search(torch, searcher, queries, **SEARCH_KW)
+    recall = _recall(got, truth)
+    labels, scores = _labels_scores(got)
+
+    def through_batcher(bs):
+        out = [None] * len(queries)
+
+        def worker(w):
+            for i in range(w, len(queries), 8):
+                out[i] = bs.search(queries[i], timeout=600, **SEARCH_KW)
+
+        threads = [threading.Thread(target=worker, args=(w,)) for w in range(8)]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(timeout=600)
+        if any(th.is_alive() for th in threads) or any(o is None for o in out):
+            fail("the batcher did not answer every query")
+        return out
+
+    with BatchedSearcher(searcher, max_batch=16, max_wait_ms=2) as bs:
+        through_batcher(bs)  # warm: the batches' shapes
+        b0, q0 = bs.batches_run, bs.queries_run
+        torch.cuda.synchronize()
+        t = time.time()
+        batched = through_batcher(bs)
+        torch.cuda.synchronize()
+        batcher_ms_q = (time.time() - t) * 1e3 / len(queries)
+        n_batches, n_q = bs.batches_run - b0, bs.queries_run - q0
+    b_labels, b_scores = _labels_scores(batched)
+    differing = []
+    for i, (a, b) in enumerate(zip(labels, b_labels)):
+        if a != b:
+            differing.append({"query": i, "direct": a, "batched": b,
+                              "score_gap": float(np.abs(scores[i] - b_scores[i]).max())})
+
+    # the host runtime against the Python paths: the hash tokenizer, the
+    # WordPiece, the passage store
+    hash_tok = HashTokenizer(vocab_size=32768, max_length=128)
+    (n_ids, n_mask), native_s = _timed(lambda: hash_tok.encode_batch(chunks))
+    (p_ids, p_mask), python_s = _timed(lambda: hash_tok.encode_batch_python(chunks))
+    tokens_equal = bool(np.array_equal(n_ids, p_ids) and np.array_equal(n_mask, p_mask))
+    del n_ids, n_mask, p_ids, p_mask
+    (wp_ids, _), wordpiece_s = _timed(lambda: HFTokenizer(ckpt, max_length=128).encode_batch(chunks))
+    del wp_ids
+    with open(prefix + ".meta.json") as f:
+        sources = json.load(f)["passage_sources"]
+    native_pm, (plain_pm, _) = PassageManager(sources), _timed(lambda: PassageManager(sources, use_native=False))
+    pids = [str(i) for i in np.random.default_rng(9).choice(len(chunks), min(10_000, len(chunks)), replace=False)]
+    native_texts, native_lookup_s = _timed(lambda: [native_pm.get_passage(p)["text"] for p in pids])
+    plain_texts, plain_lookup_s = _timed(lambda: [plain_pm.get_passage(p)["text"] for p in pids])
+    passages_equal = native_texts == plain_texts == [chunks[int(p)] for p in pids]
+
+    # each kernel at this path's shapes, on its inputs
+    kr = {}
+    ebf, norms = kp.upload_panel_inputs(seen["emb"], dev)
+    kr[("knn_panel", "checkpoint_diskann")] = panel_row(torch, kp, ebf, norms, seen["k"])
+    del ebf, norms
+    torch.cuda.empty_cache()
+    be = oracle_searcher.backend
+    q = be.get_encoder().encode(queries)
+    q = pad_features(torch.from_numpy(q / np.linalg.norm(q, axis=1, keepdims=True)).to(dev))
+    n_flat, d_pad = be.n, be._emb.shape[1]
+    ik, dk = flat_topk(q, be._emb, be._en, n_flat, 3, "cosine")
+    (ip, dp), p_ms = timed_once(torch, lambda: flat_search(be._emb, q, n_flat, 3, "cosine", en=be._en))
+    qb = q.to(torch.bfloat16)
+    kr[("flat_topk", "checkpoint_oracle")] = {
+        "shape": [q.shape[0], n_flat, d_pad], "k": 3, "overlap": overlap(ik, ip),
+        "max_abs_err": float((dk - dp).abs().max()),
+        **timed_row(torch, lambda: flat_topk(q, be._emb, be._en, n_flat, 3, "cosine"), p_ms,
+                    lambda: torch.topk(qb @ be._emb.T, 3), n_flat * d_pad * 2 + q.shape[0] * d_pad * 4
+                    + q.shape[0] * 3 * 8, 2.0 * q.shape[0] * n_flat * d_pad, reps=10)}
+
+    row = {"phase": "checkpoint", "n_chunks": len(chunks), "model": "all-MiniLM-L6-v2 widths, seeded weights",
+           "hf_config": {k: hf_config[k] for k in ("vocab_size", "hidden_size", "num_hidden_layers",
+                                                   "num_attention_heads", "intermediate_size",
+                                                   "max_position_embeddings")},
+           "write_checkpoint_s": write_s, "loaded_hf": enc.loaded_hf, "tokenizer": type(enc.tokenizer).__name__,
+           "unk_share": unk_share, "mean_tokens": float(tok_lengths.mean()),
+           "calib_files": sorted(calib), "calib_max_diff": calib_diff,
+           "build_s": build_phases, "flat_build_s": dict(oracle.phase_seconds), "knn_k": seen["k"],
+           "recall_at_3": recall, "search_ms_per_query": ms_q, "search_kw": SEARCH_KW,
+           "batcher": {"max_batch": 16, "max_wait_ms": 2, "threads": 8, "ms_per_query": batcher_ms_q,
+                       "batches_run": n_batches, "mean_batch": n_q / max(n_batches, 1),
+                       "labels_differing": differing},
+           "hash_tokenizer": {"texts": len(chunks), "native_s": native_s, "python_s": python_s,
+                              "equal": tokens_equal},
+           "wordpiece_s": wordpiece_s,
+           "passages": {"lookups": len(pids), "native_s": native_lookup_s, "offset_map_s": plain_lookup_s,
+                        "equal": passages_equal},
+           "all_in_bytes": index_all_in_bytes(prefix), "launches": launches,
+           "kernels": {f"{name}@{path}": {key: v for key, v in r.items() if key != "kernel_parts_ms"}
+                       for (name, path), r in kr.items()}}
+    emit(row)
+    if not (enc.loaded_hf and isinstance(enc.tokenizer, HFTokenizer)):
+        fail(f"the checkpoint did not load as one: loaded_hf {enc.loaded_hf}, {type(enc.tokenizer).__name__}")
+    if unk_share != 0.0:
+        fail(f"[UNK] share {unk_share} on the corpus")
+    if calib_diff is None or calib_diff > 1e-6:
+        fail(f"the two builds' .calib.npz are missing or differ: {sorted(calib)}, max diff {calib_diff}")
+    if launches["checkpoint_diskann"]["knn_panel"] != 1 or seen["k"] != 64:
+        fail(f"the diskann build did not launch knn_panel once at k = 64: {launches}, k {seen['k']}")
+    if launches["checkpoint_oracle"]["flat_topk"] != 1:
+        fail(f"the oracle did not launch flat_topk once: {launches}")
+    if recall < 0.80:
+        fail(f"checkpoint recall@3 {recall:.4f} below the 0.80 sanity floor")
+    if any(d["score_gap"] >= 1e-5 for d in differing):
+        fail(f"the batcher's labels differ from the direct search's beyond near-ties: {differing}")
+    if not (tokens_equal and passages_equal):
+        fail(f"native and Python paths disagree: tokens {tokens_equal}, passages {passages_equal}")
+    for (name, path), r in kr.items():
+        if r["overlap"] < 0.999 or r["max_abs_err"] > 1e-5 or r.get("self_hits", 0):
+            fail(f"{name} on {path} disagrees with its plain version: {r}")
+    return kr, launches
+
+
+def _timed(fn):
+    """-> (``fn()``, its wall seconds on the host's clock)."""
+    t = time.time()
+    out = fn()
+    return out, time.time() - t
+
+
 def main() -> int:
     try:
         import torch
@@ -1165,7 +1427,7 @@ def main() -> int:
 
     from leann_torch.ops import cuda_build
 
-    build_s = cuda_build.build(["flat_topk", "knn_panel", "ldg_partition"])
+    build_s = cuda_build.build(["flat_topk", "knn_panel", "ldg_partition", "hash_tokenizer", "passage_store"])
     sass = {name: sass_counts(cuda_build._lib_path(name)) for name in ("flat_topk", "knn_panel")}
     ptxas = {k: [ln.strip() for ln in v.splitlines() if "registers" in ln or "spill" in ln or "entry" in ln]
              for k, v in cuda_build.BUILD_LOGS.items()}
@@ -1178,33 +1440,33 @@ def main() -> int:
     dev = torch.device("cuda")
     torch.set_float32_matmul_precision("highest")  # the plain versions' products in full f32
     rng = np.random.default_rng(1234)
-    flat_rows = phase_flat_topk(torch, dev, rng)
-    knn_rows = phase_knn_panel(torch, dev, rng)
-    with tempfile.TemporaryDirectory(dir=REPO / "build") as workdir:
-        launches = {}
-        launches["diskann"], main_state = phase_main_path(torch, workdir)
-        launches["hnsw"] = phase_hnsw_path(torch, workdir, main_state)
-        rows6, launches6 = phase_beyond_card_knn(torch, dev, seed=6)
-        rows7, launches7 = phase_beyond_card_path(torch, dev, workdir, main_state, seed=7)
-        rows8, launches8 = phase_lifecycle(torch, dev, workdir, main_state)
-    for more in (launches6, launches7, launches8):
-        launches.update(more)
-
+    rows, launches = [], {}
     b1 = ("leann_torch/csrc/flat_topk.cu", "leann_tpu/ops/pallas_topk.py:32", "flat_topk")
     b2 = ("leann_torch/csrc/knn_panel.cu", "leann_tpu/ops/pallas_knn.py:45", "knn_panel")
-    rows = [("flat_topk", "diskann", flat_rows[3], b1), ("knn_panel", "diskann", knn_rows[64], b2),
-            ("knn_panel", "hnsw", knn_rows[128], b2), ("flat_topk", "flat_top512", flat_rows[512], b1)]
-    rows += [(name, path, r, b1 if name == "flat_topk" else b2)
-             for (name, path), r in list(rows6.items()) + list(rows7.items()) + list(rows8.items())]
+    flat_rows = phase_flat_topk(torch, dev, rng)
+    knn_rows = phase_knn_panel(torch, dev, rng)
+    rows += [("flat_topk", "diskann", flat_rows[3], b1), ("knn_panel", "diskann", knn_rows[64], b2),
+             ("knn_panel", "hnsw", knn_rows[128], b2), ("flat_topk", "flat_top512", flat_rows[512], b1)]
+    with tempfile.TemporaryDirectory(dir=REPO / "build") as workdir:
+        launches["diskann"], main_state = phase_main_path(torch, workdir)
+        launches["hnsw"] = phase_hnsw_path(torch, workdir, main_state)
+        more = [phase_beyond_card_knn(torch, dev, seed=6),
+                phase_beyond_card_path(torch, dev, workdir, main_state, seed=7),
+                phase_lifecycle(torch, dev, workdir, main_state),
+                phase_checkpoint(torch, dev, workdir, main_state["chunks"], main_state["queries"])]
+    for kr, more_launches in more:
+        launches.update(more_launches)
+        rows += [(name, path, r, b1 if name == "flat_topk" else b2) for (name, path), r in kr.items()]
     kernels = []
     for name, path, row, (src, replaces, lib) in rows:
         kernels.append({"name": name, "path": path, "k": row["k"], "route": "cuda", "source": src,
                         "replaces": replaces, "launches": launches[path][name],
                         "launches_by_path": {p: c.get(name, 0) for p, c in launches.items()},
                         "max_abs_err": row["max_abs_err"], "ms": row["kernel_ms"],
-                        "ms_source": "torch.profiler device time", "call_ms": row["call_ms"],
+                        "ms_source": row["profile"]["source"], "call_ms": row["call_ms"],
                         "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
-                        "library_ms": row["library_ms"], "sass": sass[lib]})
+                        "library_ms": row["library_ms"], "library_ms_source": row["library_profile"]["source"],
+                        "sass": sass[lib]})
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -15,6 +15,7 @@ CUDA is absent unless the caller passes ``device="cpu"``.
 
 from __future__ import annotations
 
+import contextlib
 import hashlib
 import json
 import logging
@@ -57,12 +58,22 @@ class SearchResult:
 
 class PassageManager:
     """Offset-indexed access to one or more passage jsonl shards; paths are
-    resolved relative to the meta.json location so indexes are portable."""
+    resolved relative to the meta.json location so indexes are portable.
 
-    def __init__(self, passage_sources: List[Dict[str, Any]], meta_dir: "str | None" = None):
+    With ``use_native`` (the default) each source's lookups go through the
+    native store (``runtime/passage_store.py``, which raises if it cannot be
+    built); an id it lacks, or a line whose id is another, is read through
+    the offset map, as an id appended by ``update_index`` after the store's
+    ``.cidx`` was written. Where the ``.cidx`` is missing or stale and the
+    directory takes no new file, the source is read through the offset map
+    alone, with a warning."""
+
+    def __init__(self, passage_sources: List[Dict[str, Any]], meta_dir: "str | None" = None,
+                 use_native: bool = True):
         self._sources: List[Dict[str, Any]] = []
         self._offsets: List[Dict[str, int]] = []
         self._id_to_source: Dict[str, int] = {}
+        self._native: List[Any] = []  # per source: NativePassageStore, or None without use_native
         self.filter_engine = MetadataFilterEngine()
         for src in passage_sources:
             path = self._resolve(src["path"], meta_dir)
@@ -72,6 +83,15 @@ class PassageManager:
             si = len(self._sources)
             self._sources.append({**src, "path": path})
             self._offsets.append(offsets)
+            native = None
+            if use_native:
+                from .runtime.passage_store import NativePassageStore, OffsetIndexUnwritable
+
+                try:
+                    native = NativePassageStore(path)
+                except OffsetIndexUnwritable as e:
+                    logger.warning("%s: passages are read through the offset map", e)
+            self._native.append(native)
             for pid in offsets:
                 self._id_to_source[pid] = si
 
@@ -98,6 +118,11 @@ class PassageManager:
         si = self._id_to_source.get(pid)
         if si is None:
             raise KeyError(f"passage id {pid!r} not found")
+        native = self._native[si]
+        if native is not None:
+            p = native.get(pid)
+            if p is not None and str(p.get("id")) == pid:
+                return p
         offset = self._offsets[si][pid]
         with open(self._sources[si]["path"], "rb") as f:
             f.seek(offset)
@@ -123,6 +148,22 @@ def _passages_fingerprint(chunks: List[Dict[str, Any]]) -> str:
     return h.hexdigest()[:16]
 
 
+@contextlib.contextmanager
+def _replacing(path: str):
+    """A binary file written at a temporary name beside ``path`` and renamed
+    over it once complete. A store that mmapped the old jsonl (the native
+    passage store of an open searcher) keeps the old file; a rewrite in
+    place could leave it mapped past the end of a shorter one."""
+    tmp = f"{path}.{os.getpid()}.tmp"
+    try:
+        with open(tmp, "wb") as f:
+            yield f
+        os.replace(tmp, path)
+    finally:
+        if os.path.exists(tmp):
+            os.unlink(tmp)
+
+
 def _write_passages(chunks: List[Dict[str, Any]], prefix: str) -> Dict[str, Any]:
     passages_path = f"{prefix}.passages.jsonl"
     idx_path = f"{prefix}.passages.idx"
@@ -142,13 +183,13 @@ def _write_passages(chunks: List[Dict[str, Any]], prefix: str) -> Dict[str, Any]
             logger.info("passages store up to date (%d rows): skipping rewrite", len(chunks))
             return src
     offsets: Dict[str, int] = {}
-    with open(passages_path, "wb") as f:
+    with _replacing(passages_path) as f:
         for c in chunks:
             offsets[c["id"]] = f.tell()
             f.write(json.dumps({"id": c["id"], "text": c["text"], "metadata": c.get("metadata", {})},
                                ensure_ascii=False).encode("utf-8"))
             f.write(b"\n")
-    with open(idx_path, "wb") as f:
+    with _replacing(idx_path) as f:
         pickle.dump(offsets, f)
     if chunks:
         with open(done_path, "w") as f:
@@ -246,6 +287,9 @@ class LeannBuilder:
 
         texts = [c["text"] for c in chunks]
         t = time.time()
+        self._maybe_calibrate(texts, prefix)
+        times["calibrate"] = time.time() - t
+        t = time.time()
         embeddings = self._embed(texts)
         times["embed"] = time.time() - t
         self.dimensions = int(embeddings.shape[1])
@@ -303,6 +347,15 @@ class LeannBuilder:
         texts = [c["text"] for c in chunks]
 
         t = time.time()
+        calib_path = f"{prefix}.calib.npz"
+        if os.path.exists(calib_path) and self.embedding_mode in IN_PROCESS_MODES:
+            # the new chunks are embedded as the index's were: with its
+            # corpus calibration (a fresh process's encoder lacks it)
+            from .embeddings.encoder import get_encoder
+
+            with np.load(calib_path) as z:
+                get_encoder(self.embedding_model, max_length=self.max_length, device=self.device).apply_calibration(
+                    {"out_center": z["out_center"], "out_pc": z["out_pc"]})
         embeddings = self._embed(texts)
         if self.distance_metric == "cosine":
             embeddings = embeddings / np.maximum(np.linalg.norm(embeddings, axis=1, keepdims=True), 1e-12)
@@ -316,7 +369,7 @@ class LeannBuilder:
                 f.write(json.dumps({"id": c["id"], "text": c["text"], "metadata": c.get("metadata", {})},
                                    ensure_ascii=False).encode("utf-8"))
                 f.write(b"\n")
-        with open(f"{prefix}.passages.idx", "wb") as f:
+        with _replacing(f"{prefix}.passages.idx") as f:
             pickle.dump(offsets, f)
         if os.path.exists(f"{prefix}.ids.json"):
             save_ids(prefix, load_ids(prefix) + [c["id"] for c in chunks])
@@ -388,6 +441,25 @@ class LeannBuilder:
             self._maybe_write_tokens(list(texts), prefix)
         self._backend_build(factory, embeddings, [str(i) for i in ids], prefix)
         self._write_meta(prefix, [source], n=len(ids))
+
+    def _maybe_calibrate(self, texts: List[str], prefix: str) -> None:
+        """Corpus calibration of a loaded checkpoint's encoder
+        (:meth:`TorchEncoder.calibrate`), saved as ``<prefix>.calib.npz`` for
+        the searchers. It sets the calibration on the cached encoder that
+        ``_embed`` then uses: the same name, ``max_length`` and device.
+        hash-* models keep their seeded probe center, and a calibration an
+        earlier build left at this prefix is removed (the searchers would
+        apply it)."""
+        calib_path = f"{prefix}.calib.npz"
+        if self.embedding_mode in IN_PROCESS_MODES:
+            from .embeddings.encoder import get_encoder
+
+            enc = get_encoder(self.embedding_model, max_length=self.max_length, device=self.device)
+            if enc.needs_corpus_calibration:
+                np.savez(calib_path, **enc.calibrate(texts))
+                return
+        if os.path.exists(calib_path):
+            os.remove(calib_path)
 
     def _maybe_write_tokens(self, texts: List[str], prefix: str) -> None:
         """Tokenize passages for on-device recompute (u16 when the vocab

@@ -17,10 +17,18 @@ Numerics, each kept on purpose:
 
 Parameters are a plain dict of tensors with the JAX package's tree layout,
 so :func:`params_from_jax` is a leaf-by-leaf conversion.
+
+A local BERT-family checkpoint directory loads through
+:func:`load_hf_weights`, which reads ``config.json`` and the weights
+(``model.safetensors`` parsed here, or ``pytorch_model.bin`` through
+``torch.load``) without ``transformers`` or ``safetensors``;
+:func:`save_hf_weights` writes one that ``transformers`` loads. Such an
+encoder is calibrated on the corpus it indexes (:meth:`TorchEncoder.calibrate`).
 """
 
 from __future__ import annotations
 
+import json
 import logging
 import math
 import os
@@ -142,9 +150,16 @@ def _tree_map(fn, tree):
 
 
 def params_to_torch(tree, device: "str | torch.device" = "cuda") -> Dict:
-    """numpy/array-like leaves -> f32 tensors on ``device`` (same tree)."""
+    """numpy/array-like or tensor leaves -> f32 tensors on ``device`` (same
+    tree)."""
     dev = torch.device(device)
-    return _tree_map(lambda a: torch.from_numpy(np.array(a, np.float32)).to(dev), tree)
+
+    def leaf(a):
+        if isinstance(a, torch.Tensor):
+            return a.detach().to(dev, torch.float32)
+        return torch.from_numpy(np.array(a, np.float32)).to(dev)
+
+    return _tree_map(leaf, tree)
 
 
 def params_from_jax(tree, device: "str | torch.device" = "cuda") -> Dict:
@@ -252,21 +267,87 @@ def _compute_out_center(params: Dict, cfg: EncoderConfig) -> torch.Tensor:
 
 
 class TorchEncoder:
-    """Batched text encoder with the JAX package's length/batch bucketing."""
+    """Batched text encoder with the JAX package's length/batch bucketing.
 
-    def __init__(self, model_name: str, max_length: Optional[int] = None, device: "str | torch.device" = "cuda"):
+    ``model_name`` is a registry name (seeded weights) or a local BERT-family
+    checkpoint directory (:func:`load_hf_weights`; a directory that cannot be
+    read warns and falls back to seeded weights, as in the JAX package).
+    ``params=`` supplies the weights instead."""
+
+    def __init__(self, model_name: str, max_length: Optional[int] = None, device: "str | torch.device" = "cuda",
+                 params: Optional[Dict] = None):
         self.device = resolve_device(device)
         self.cfg = resolve_config(model_name)
         if max_length is not None and max_length != self.cfg.max_len:
             self.cfg = replace(self.cfg, max_len=max_length)
         self.model_name = model_name
-        if os.path.isdir(model_name):
-            raise NotImplementedError(
-                "local HF checkpoints are not ported to leann_torch yet (ROADMAP.md, left for later #7)")
-        self.params = params_to_torch(init_params(self.cfg), self.device)
-        if self.cfg.center:
-            self.params["out_center"] = _compute_out_center(self.params, self.cfg)
+        self.loaded_hf = False  # set by _load_or_init on a local-checkpoint load
+        if params is not None:
+            self.params = params_to_torch(params, self.device)
+            # the tokenizer's id space comes from the supplied embedding
+            # table, not the name-resolved placeholder config
+            rows = int(self.params["tok_emb"].shape[0]) if "tok_emb" in self.params else self.cfg.vocab_size
+            if rows != self.cfg.vocab_size:
+                self.cfg = replace(self.cfg, vocab_size=rows)
+        else:
+            self.params = self._load_or_init(model_name)
+        # after the load: a checkpoint's config replaces the placeholder's
+        # vocab size, which the hash tokenizer's ids must stay under
         self.tokenizer = get_tokenizer(model_name, vocab_size=self.cfg.vocab_size, max_length=self.cfg.max_len)
+
+    def _load_or_init(self, model_name: str) -> Dict:
+        if os.path.isdir(model_name):
+            try:
+                tree, cfg = load_hf_weights(model_name)
+            except Exception as e:  # the JAX package's rule: warn, then seeded weights
+                logger.warning("could not load HF weights from %s (%s); seeded init", model_name, e)
+            else:
+                self.cfg = replace(cfg, max_len=self.cfg.max_len)
+                params = params_to_torch(tree, self.device)
+                if self.cfg.center:
+                    params["out_center"] = _compute_out_center(params, self.cfg)
+                self.loaded_hf = True
+                logger.info("loaded local HF weights from %s", model_name)
+                return params
+        params = params_to_torch(init_params(self.cfg), self.device)
+        if self.cfg.center:
+            params["out_center"] = _compute_out_center(params, self.cfg)
+        return params
+
+    @property
+    def needs_corpus_calibration(self) -> bool:
+        """A loaded checkpoint is calibrated on the corpus it indexes: the
+        seeded-probe center of the hash-* models does not fit a real
+        checkpoint's text distribution, and the mean alone leaves
+        BERT-family outputs near-collinear."""
+        return self.loaded_hf and self.cfg.center
+
+    @torch.no_grad()
+    def calibrate(self, texts: Sequence[str], n_components: int = 8) -> Dict[str, np.ndarray]:
+        """Corpus calibration, as the JAX package's: the mean and the top
+        principal directions of the RAW pooled outputs (no centering, no
+        normalization) of the first 256 texts, tokenized at the full
+        ``max_len`` in batches of 128, with the SVD in float64 on the host
+        (all-but-the-top, Mu & Viswanath 2018). Sets them on this encoder
+        and returns ``{out_center, out_pc}`` for ``<prefix>.calib.npz``."""
+        sample = list(texts[:256])
+        raw_cfg = replace(self.cfg, center=False, normalize=False)
+        out = []
+        for s in range(0, len(sample), 128):
+            ids, mask = self.tokenize(sample[s : s + 128])
+            out.append(encode_tokens(self.params, torch.from_numpy(ids).to(self.device),
+                                     torch.from_numpy(mask).to(self.device), raw_cfg).cpu().numpy())
+        pooled = np.concatenate(out).astype(np.float64)
+        mean = pooled.mean(axis=0)
+        k = max(0, min(n_components, pooled.shape[0] - 1, self.cfg.dim - 1))
+        _, svals, vt = np.linalg.svd(pooled - mean, full_matrices=False)
+        calib = {"out_center": mean.astype(np.float32),
+                 "out_pc": np.ascontiguousarray(vt[:k].T).astype(np.float32)}  # [D, k]
+        self.apply_calibration(calib)
+        logger.info("corpus calibration: %d samples, removed the mean + %d PCs (top sv %.2f / residual %.2f)",
+                    len(sample), k, float(svals[0]) if k else 0.0,
+                    float(svals[k:].mean()) if k < len(svals) else 0.0)
+        return calib
 
     def apply_calibration(self, calib: Dict[str, np.ndarray]) -> None:
         self.params = dict(self.params)
@@ -317,6 +398,201 @@ class TorchEncoder:
                 mask[len(chunk):, 0] = 1  # avoid 0/0 in pooling
             out[start : start + len(chunk)] = self.encode_token_batch(ids, mask)[: len(chunk)]
         return out.cpu().numpy()
+
+
+# ---------------------------------------------------------------------------
+# Local HF BERT checkpoints
+# ---------------------------------------------------------------------------
+
+_ST_DTYPES = {"F32": np.float32, "F16": np.float16, "BF16": np.uint16}
+
+
+def read_safetensors(path: str) -> Dict[str, np.ndarray]:
+    """A ``.safetensors`` file -> {name: f32 array}, parsed here: an 8-byte
+    little-endian header length, a JSON header of ``dtype`` / ``shape`` /
+    ``data_offsets`` per tensor (``__metadata__`` skipped), then the data.
+    F32, F16 and BF16 tensors are widened to f32; another dtype raises."""
+    raw = np.memmap(path, dtype=np.uint8, mode="r")
+    n = int(raw[:8].view("<u8")[0])
+    header = json.loads(bytes(raw[8 : 8 + n]).decode("utf-8"))
+    base = 8 + n
+    out = {}
+    for name, info in header.items():
+        if name == "__metadata__":
+            continue
+        dt = _ST_DTYPES.get(info["dtype"])
+        if dt is None:
+            raise ValueError(f"{path}: tensor {name} has dtype {info['dtype']}; F32, F16 and BF16 are read")
+        lo, hi = info["data_offsets"]
+        a = raw[base + lo : base + hi].view(np.dtype(dt).newbyteorder("<")).reshape(info["shape"])
+        if info["dtype"] == "BF16":  # the high half of an f32
+            a = (a.astype(np.uint32) << 16).view(np.float32)
+        out[name] = np.array(a, np.float32)
+    return out
+
+
+def write_safetensors(tensors: Dict[str, np.ndarray], path: str) -> None:
+    """{name: array} -> a ``.safetensors`` file of F32 tensors (contiguous
+    data in the header's order, the header padded with spaces to 8 bytes,
+    ``__metadata__`` {"format": "pt"}), written whole and renamed into
+    place."""
+    header: Dict[str, object] = {"__metadata__": {"format": "pt"}}
+    arrays, off = [], 0
+    for name, a in tensors.items():
+        a = np.ascontiguousarray(a, dtype="<f4")
+        header[name] = {"dtype": "F32", "shape": list(a.shape), "data_offsets": [off, off + a.nbytes]}
+        arrays.append(a)
+        off += a.nbytes
+    hb = json.dumps(header, separators=(",", ":")).encode("utf-8")
+    hb += b" " * (-len(hb) % 8)
+    tmp = f"{path}.{os.getpid()}.tmp"
+    with open(tmp, "wb") as f:
+        f.write(np.uint64(len(hb)).astype("<u8").tobytes())
+        f.write(hb)
+        for a in arrays:
+            f.write(a.tobytes())
+    os.replace(tmp, path)
+
+
+def _read_state_dict(path: str) -> Dict[str, np.ndarray]:
+    """A checkpoint directory's weights -> {BertModel key: f32 array}. The
+    ``bert.`` prefix of a checkpoint saved from a ``BertFor*`` head is
+    stripped and LayerNorm's old ``gamma`` / ``beta`` names are renamed, as
+    ``AutoModel`` does."""
+    st = os.path.join(path, "model.safetensors")
+    bin_path = os.path.join(path, "pytorch_model.bin")
+    if os.path.exists(st):
+        sd = read_safetensors(st)
+    elif os.path.exists(bin_path):
+        sd = {k: v.detach().to(torch.float32).numpy()
+              for k, v in torch.load(bin_path, map_location="cpu", weights_only=True).items()
+              if isinstance(v, torch.Tensor) and v.is_floating_point()}
+    else:
+        raise FileNotFoundError(f"{path} holds neither model.safetensors nor pytorch_model.bin")
+    out = {}
+    for k, v in sd.items():
+        k = k[len("bert."):] if k.startswith("bert.") else k
+        if k.endswith(".gamma"):
+            k = k[: -len("gamma")] + "weight"
+        elif k.endswith(".beta"):
+            k = k[: -len("beta")] + "bias"
+        out[k] = v
+    return out
+
+
+def load_hf_weights(path: str) -> Tuple[Dict, EncoderConfig]:
+    """A local HF BERT-family checkpoint directory -> (param tree of numpy f32
+    leaves, config). The same tree as the JAX package's loader: the same
+    leaf names, dense weights transposed to [in, out], ``token_type`` row 0
+    folded into ``tok_emb``, ``pos_emb`` cut to the config's ``max_len``
+    (``max_position_embeddings``, at most 512), an identity ``final_ln``
+    (unused by the bert arch)."""
+    with open(os.path.join(path, "config.json")) as f:
+        hf = json.load(f)
+    cfg = EncoderConfig(
+        name=path,
+        vocab_size=hf["vocab_size"],
+        dim=hf["hidden_size"],
+        n_layers=hf["num_hidden_layers"],
+        n_heads=hf["num_attention_heads"],
+        mlp_dim=hf["intermediate_size"],
+        max_len=min(hf.get("max_position_embeddings", 512), 512),
+        arch="bert",
+        normalize=True,
+        center=True,  # all-but-the-top for checkpoints too (calibrate)
+    )
+    sd = _read_state_dict(path)
+
+    def dense(prefix):
+        return {"w": np.ascontiguousarray(sd[prefix + ".weight"].T), "b": sd[prefix + ".bias"]}
+
+    def ln(prefix):
+        return {"scale": sd[prefix + ".weight"], "bias": sd[prefix + ".bias"]}
+
+    tok = sd["embeddings.word_embeddings.weight"]
+    if "embeddings.token_type_embeddings.weight" in sd:
+        tok = tok + sd["embeddings.token_type_embeddings.weight"][0][None, :]
+    params = {
+        "tok_emb": tok,
+        "pos_emb": np.ascontiguousarray(sd["embeddings.position_embeddings.weight"][: cfg.max_len]),
+        "emb_ln": ln("embeddings.LayerNorm"),
+        "final_ln": _ln_init(cfg.dim),
+        "layers": [],
+    }
+    for i in range(cfg.n_layers):
+        p = f"encoder.layer.{i}"
+        params["layers"].append({
+            "q": dense(f"{p}.attention.self.query"),
+            "k": dense(f"{p}.attention.self.key"),
+            "v": dense(f"{p}.attention.self.value"),
+            "o": dense(f"{p}.attention.output.dense"),
+            "ln1": ln(f"{p}.attention.output.LayerNorm"),
+            "fc1": dense(f"{p}.intermediate.dense"),
+            "fc2": dense(f"{p}.output.dense"),
+            "ln2": ln(f"{p}.output.LayerNorm"),
+        })
+    return params, cfg
+
+
+_HF_NAMES = (("q", "attention.self.query"), ("k", "attention.self.key"), ("v", "attention.self.value"),
+             ("o", "attention.output.dense"), ("fc1", "intermediate.dense"), ("fc2", "output.dense"))
+_HF_LN_NAMES = (("ln1", "attention.output.LayerNorm"), ("ln2", "output.LayerNorm"))
+
+
+def save_hf_weights(params: Dict, cfg: EncoderConfig, path: str) -> None:
+    """Write a param tree as a local HF BERT checkpoint (``config.json`` with
+    ``BertConfig``'s fields and ``model.safetensors`` with ``BertModel``'s
+    key names), the inverse of :func:`load_hf_weights`: the token-type rows
+    are zero (the loader folds row 0 into ``tok_emb``) and the pooler, which
+    masked-mean pooling never reads, is seeded. Leaves may be numpy arrays or
+    tensors. ``transformers`` is not needed."""
+    def a(x):
+        return x.detach().cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x, np.float32)
+
+    os.makedirs(path, exist_ok=True)
+    d = cfg.dim
+    n_pos = int(a(params["pos_emb"]).shape[0])
+    sd = {
+        "embeddings.word_embeddings.weight": a(params["tok_emb"]),
+        "embeddings.position_embeddings.weight": a(params["pos_emb"]),
+        "embeddings.token_type_embeddings.weight": np.zeros((2, d), np.float32),
+        "embeddings.LayerNorm.weight": a(params["emb_ln"]["scale"]),
+        "embeddings.LayerNorm.bias": a(params["emb_ln"]["bias"]),
+    }
+    for i, layer in enumerate(params["layers"]):
+        p = f"encoder.layer.{i}"
+        for ours, theirs in _HF_NAMES:
+            sd[f"{p}.{theirs}.weight"] = a(layer[ours]["w"]).T
+            sd[f"{p}.{theirs}.bias"] = a(layer[ours]["b"])
+        for ours, theirs in _HF_LN_NAMES:
+            sd[f"{p}.{theirs}.weight"] = a(layer[ours]["scale"])
+            sd[f"{p}.{theirs}.bias"] = a(layer[ours]["bias"])
+    sd["pooler.dense.weight"] = np.random.default_rng(0).standard_normal((d, d)).astype(np.float32) * 0.02
+    sd["pooler.dense.bias"] = np.zeros((d,), np.float32)
+    config = {
+        "architectures": ["BertModel"],
+        "attention_probs_dropout_prob": 0.0,
+        "classifier_dropout": None,
+        "hidden_act": "gelu",
+        "hidden_dropout_prob": 0.0,
+        "hidden_size": d,
+        "initializer_range": 0.02,
+        "intermediate_size": cfg.mlp_dim,
+        "layer_norm_eps": 1e-12,
+        "max_position_embeddings": n_pos,
+        "model_type": "bert",
+        "num_attention_heads": cfg.n_heads,
+        "num_hidden_layers": len(params["layers"]),
+        "pad_token_id": 0,
+        "position_embedding_type": "absolute",
+        "torch_dtype": "float32",
+        "type_vocab_size": 2,
+        "use_cache": True,
+        "vocab_size": int(sd["embeddings.word_embeddings.weight"].shape[0]),
+    }
+    write_safetensors(sd, os.path.join(path, "model.safetensors"))
+    with open(os.path.join(path, "config.json"), "w") as f:
+        json.dump(config, f, indent=2, sort_keys=True)
 
 
 _ENCODER_CACHE: Dict[Tuple[str, Optional[int], str], TorchEncoder] = {}

@@ -757,6 +757,14 @@ def build_graph(
     n, d = emb.shape
     r = min(r, max(n - 1, 1))
     c = min(r * candidate_factor, max(n - 1, 1))
+    # LEANN_KNN_CANDIDATES pins the candidate width apart from R, as in the
+    # JAX package: the k-NN's cost and its checkpoint key depend on c alone,
+    # so a degree sweep reuses a saved ckpt_knn.npy
+    c_env = int(os.environ.get("LEANN_KNN_CANDIDATES", "0") or 0)
+    if c_env > 0:
+        if c_env < r:
+            logger.warning("LEANN_KNN_CANDIDATES=%d < graph degree R=%d; clamping to R", c_env, r)
+        c = min(max(c_env, r), max(n - 1, 1))
     if keep_closest < 0:
         keep_closest = r // 4
     rc_tag = f"_rc{reverse_candidates}" if reverse_candidates > 0 else ""

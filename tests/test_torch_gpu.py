@@ -264,3 +264,100 @@ def test_update_index_on_the_card_matches_the_cpu(cuda, tmp_path):
     labels = [[[r.id for r in row] for row in LeannSearcher(prefixes[d], device="cuda").search(
         queries, top_k=3, complexity=32, beam_width=4)] for d in ("cuda", "cpu")]
     assert labels[0] == labels[1]
+
+
+def _minilm_checkpoint(path):
+    """A full-width all-MiniLM-L6-v2-shaped checkpoint (seeded weights, the
+    port's own writer) with an uncased WordPiece vocab.txt of 30,522 lines."""
+    import json
+    import os
+    from dataclasses import replace
+
+    from leann_torch.embeddings import encoder as te
+
+    cfg = replace(te.MODEL_REGISTRY["hash-minilm"], name="minilm-l6-seeded", vocab_size=30522, n_heads=12,
+                  max_len=512, arch="bert")
+    te.save_hf_weights(te.init_params(cfg), cfg, path)
+    chars = list("abcdefghijklmnopqrstuvwxyz0123456789")
+    vocab = ["[PAD]", "[UNK]", "[CLS]", "[SEP]", "[MASK]"] + chars + ["##" + c for c in chars] + [
+        "the", "run", "##ning", "cat", "!"]
+    vocab += [f"[unused{i}]" for i in range(30522 - len(vocab))]
+    with open(os.path.join(path, "vocab.txt"), "w") as f:
+        f.write("\n".join(vocab) + "\n")
+    with open(os.path.join(path, "tokenizer_config.json"), "w") as f:
+        json.dump({"do_lower_case": True, "tokenizer_class": "BertTokenizer"}, f)
+    return path, vocab
+
+
+def test_full_width_checkpoint_encodes_on_cuda_as_on_cpu(cuda, tmp_path):
+    """The port's saved full-width checkpoint loads and encodes on the card
+    within the bf16 tolerance of tests/test_torch_encoder.py of the CPU."""
+    from leann_torch.embeddings.encoder import TorchEncoder
+
+    path, _ = _minilm_checkpoint(str(tmp_path / "minilm"))
+    texts = [f"the cat {i} running w{i} cats{i % 7}!" for i in range(40)]
+    encs = {d: TorchEncoder(path, max_length=128, device=d) for d in ("cuda", "cpu")}
+    for enc in encs.values():
+        assert enc.loaded_hf and enc.cfg.n_heads == 12 and enc.cfg.vocab_size == 30522
+        assert type(enc.tokenizer).__name__ == "HFTokenizer"
+    got, want = encs["cuda"].encode(texts), encs["cpu"].encode(texts)
+    assert np.isfinite(got).all()
+    np.testing.assert_allclose(got, want, rtol=0, atol=2e-3)
+
+
+def test_wordpiece_without_transformers(tmp_path, monkeypatch):
+    """The port's WordPiece needs no transformers (the card's machine has
+    none; here its import is blocked): known pieces of a known
+    vocabulary."""
+    import builtins
+    import sys
+
+    from leann_torch.embeddings import tokenizer as tt
+
+    real_import = builtins.__import__
+
+    def guarded(name, *a, **kw):
+        if name.split(".")[0] == "transformers":
+            raise ImportError("transformers is blocked in this test")
+        return real_import(name, *a, **kw)
+
+    for mod in [m for m in sys.modules if m.split(".")[0] == "transformers"]:
+        monkeypatch.delitem(sys.modules, mod)
+    monkeypatch.setattr(builtins, "__import__", guarded)
+    path, vocab = _minilm_checkpoint(str(tmp_path / "minilm"))
+    tok = tt.get_tokenizer(path, vocab_size=30522, max_length=12)
+    assert isinstance(tok, tt.HFTokenizer)
+    ids, mask = tok.encode_batch(["The running CATS! zz9"])
+    want = ["[CLS]", "the", "run", "##ning", "cat", "##s", "!", "z", "##z", "##9", "[SEP]", "[PAD]"]
+    assert ids[0].tolist() == [vocab.index(t) for t in want]
+    assert mask[0].tolist() == [1] * 11 + [0]
+
+
+def test_native_libraries_build_and_match(tmp_path):
+    """The host libraries build with this machine's compiler and give the
+    Python paths' answers."""
+    import json
+    import pickle
+
+    from leann_torch.embeddings.tokenizer import HashTokenizer
+    from leann_torch.ops import cuda_build
+    from leann_torch.runtime.fast_tokenizer import encode_batch_ascii
+    from leann_torch.runtime.passage_store import NativePassageStore
+
+    cuda_build.build(["hash_tokenizer", "passage_store"])
+    rng = np.random.default_rng(5)
+    texts = [" ".join(f"w{i}" for i in rng.integers(0, 9000, 30)) + " don't STOP, x\x1cy" for _ in range(500)]
+    tok = HashTokenizer(vocab_size=30522, max_length=64)
+    for a, b in zip(encode_batch_ascii(texts, 64, 30522), tok.encode_batch_python(texts)):
+        np.testing.assert_array_equal(a, b)
+    path = tmp_path / "p.passages.jsonl"
+    offsets = {}
+    with open(path, "wb") as f:
+        for i, t in enumerate(texts):
+            offsets[str(i)] = f.tell()
+            f.write(json.dumps({"id": str(i), "text": t, "metadata": {}}).encode() + b"\n")
+    with open(tmp_path / "p.passages.idx", "wb") as f:
+        pickle.dump(offsets, f)
+    store = NativePassageStore(str(path))
+    assert len(store) == 500 and all(store.get(str(i))["text"] == texts[i] for i in range(500))
+    store.close()
