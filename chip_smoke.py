@@ -110,7 +110,22 @@ final line):
      path's ids on all 100,000 chunks and the native passage store the
      offset map's texts on 10,000 lookups (both paths timed), and both
      kernels agree with their plain versions on this path's inputs.
- 10. the kernels line: per kernel, path and k its launches on that path
+ 10. fine-tuning, then an index from the trained checkpoint: first the
+     searches' independence of the caller's precision flag (phase 4's
+     diskann and phase 5's hnsw searches under "highest", then under "high",
+     which allows TF32: identical labels and scores; "high" read back after
+     a BatchedSearcher batch); then ContrastiveTrainer on phase 9's
+     checkpoint, 200 steps of 256 (12-word prefix -> chunk) pairs at lr 1e-4
+     (queries T = 32, chunks T = 128, through the checkpoint's WordPiece;
+     the 64 eval chunks left out): the loss at the first and last step (it
+     must fall), warm ms per step, tokens per second, peak memory, one
+     profiled step's top device ops and idle share; save_hf_weights, then a
+     diskann index (phase 4's settings, calibrating) and a flat oracle from
+     that directory: one knn_panel launch at k = 64, one flat_topk launch,
+     each held against its plain version, recall@3 >= 0.80 against the
+     trained oracle, and hit@3 of each query's source chunk before and after
+     training (printed, not checked).
+ 11. the kernels line: per kernel, path and k its launches on that path
      (each path's counts set to 0 just before it and read just after), its
      device time and call time, its plain version's and a library call's
      time at that path's shapes, and its bound on the card.
@@ -520,15 +535,15 @@ def phase_main_path(torch, workdir: str):
     for name, cnt in launches.items():
         if cnt < 1:
             fail(f"kernel {name} was not launched on the main path")
-    main = {"chunks": chunks, "queries": queries, "truth": truth, "prefix": prefix, "oracle": oracle_prefix,
-            "knn_ids": knn_seen["ids"], "recall": recall, "kw": kw}
+    main = {"chunks": chunks, "queries": queries, "q_idx": q_idx, "truth": truth, "prefix": prefix,
+            "oracle": oracle_prefix, "knn_ids": knn_seen["ids"], "recall": recall, "kw": kw, "got": got,
+            "search_ms_per_query": search_s * 1e3 / len(queries)}
     return launches, main
 
 
 def phase_hnsw_path(torch, workdir: str, main):
     """The default backend over phase 4's chunks, scored against its oracle."""
     from leann_torch import LeannBuilder, LeannSearcher
-    from leann_torch.device import f32_matmuls
     from leann_torch.ops.beam_search import beam_search_text_batch
     from leann_torch.ops.flat_topk import flat_topk
     from leann_torch.ops.knn_panel import knn_panel
@@ -559,13 +574,11 @@ def phase_hnsw_path(torch, workdir: str, main):
     # hops and exact distances per query: the same batch once more through
     # the search program, which returns them per lane
     be = searcher.backend
-    with f32_matmuls():
-        cfg, params = be._make_cfg(3, complexity=64, beam_width=8)
-        q_ids, q_mask = be._encoder().tokenize(queries)
-        dev = be.device
-        _, _, steps, n_exact = beam_search_text_batch(torch.from_numpy(q_ids).to(dev),
-                                                      torch.from_numpy(q_mask).to(dev), be._graph_data(), cfg,
-                                                      params)
+    cfg, params = be._make_cfg(3, complexity=64, beam_width=8)
+    q_ids, q_mask = be._encoder().tokenize(queries)
+    dev = be.device
+    _, _, steps, n_exact = beam_search_text_batch(torch.from_numpy(q_ids).to(dev), torch.from_numpy(q_mask).to(dev),
+                                                  be._graph_data(), cfg, params)
 
     if len(got) != 64 or any(len(r) != 3 or not all(np.isfinite(x.score) for x in r) for r in got):
         fail("hnsw search did not return 3 finite results for each of 64 queries")
@@ -583,7 +596,8 @@ def phase_hnsw_path(torch, workdir: str, main):
         fail(f"hnsw recall@3 {recall:.4f} below the 0.80 sanity floor")
     if launches["knn_panel"] < 1:
         fail("kernel knn_panel was not launched on the hnsw path")
-    main.update(hnsw_prefix=prefix, hnsw_kw=kw, hnsw_recall=recall)
+    main.update(hnsw_prefix=prefix, hnsw_kw=kw, hnsw_recall=recall, hnsw_got=got,
+                hnsw_search_ms_per_query=search_s * 1e3 / len(queries))
     return launches
 
 
@@ -1222,15 +1236,56 @@ def minilm_checkpoint(path: str) -> dict:
         return json.load(f)
 
 
+def indexes_from_dir(torch, workdir: str, model_dir: str, tag: str, chunks, queries, counters, launches) -> dict:
+    """A diskann index at phase 4's settings and a flat oracle, each built
+    from a checkpoint directory (each loads the weights and calibrates on
+    the corpus), the oracle's top-3 of the queries, and each path's kernel
+    launches in ``launches[f"{tag}_diskann"]`` / ``[f"{tag}_oracle"]`` (its
+    counts set to 0 just before it). -> {prefix, builder, oracle_prefix,
+    oracle, oracle_searcher, truth, emb, k}: the build's k-NN operands."""
+    from leann_torch import LeannBuilder, LeannSearcher
+    from leann_torch.ops import graph
+
+    out = {"prefix": os.path.join(workdir, f"{tag}_diskann.leann"),
+           "oracle_prefix": os.path.join(workdir, f"{tag}_flat.leann")}
+    real_exact_knn = graph.exact_knn
+
+    def recording_exact_knn(emb, k, *a, **kw):  # keeps the build's embeddings and k; launches nothing itself
+        out["emb"], out["k"] = emb, k
+        return real_exact_knn(emb, k, *a, **kw)
+
+    _reset(counters)
+    builder = LeannBuilder(backend_name="diskann", embedding_model=model_dir, max_length=128, graph_degree=32)
+    for c in chunks:
+        builder.add_text(c)
+    graph.exact_knn = recording_exact_knn
+    try:
+        torch.cuda.synchronize()
+        builder.build_index(out["prefix"])
+        torch.cuda.synchronize()
+    finally:
+        graph.exact_knn = real_exact_knn
+    launches[f"{tag}_diskann"] = _counts(counters)
+    _reset(counters)
+    oracle = LeannBuilder(backend_name="flat", embedding_model=model_dir, max_length=128)
+    for c in chunks:
+        oracle.add_text(c)
+    oracle.build_index(out["oracle_prefix"])
+    out["oracle_searcher"] = LeannSearcher(out["oracle_prefix"])
+    out["truth"] = out["oracle_searcher"].search(queries, top_k=3)
+    torch.cuda.synchronize()
+    launches[f"{tag}_oracle"] = _counts(counters)
+    out.update(builder=builder, oracle=oracle)
+    return out
+
+
 def phase_checkpoint(torch, dev, workdir: str, chunks, queries):
     """Phase 9 -> (kernel rows by (kernel, path), launches by path)."""
-    from leann_torch import BatchedSearcher, LeannBuilder, LeannSearcher
+    from leann_torch import BatchedSearcher, LeannSearcher
     from leann_torch.api import PassageManager
     from leann_torch.embeddings.encoder import get_encoder
     from leann_torch.embeddings.tokenizer import HashTokenizer, HFTokenizer
-    from leann_torch.ops import graph
     from leann_torch.ops import knn_panel as kp
-    from leann_torch.ops.distance import flat_search, pad_features
     from leann_torch.ops.flat_topk import flat_topk
     from leann_torch.storage import index_all_in_bytes, load_token_cache
 
@@ -1242,41 +1297,13 @@ def phase_checkpoint(torch, dev, workdir: str, chunks, queries):
     write_s = time.time() - t
 
     # the diskann build and the flat oracle from the directory
-    prefix = os.path.join(workdir, "ckpt_diskann.leann")
-    oracle_prefix = os.path.join(workdir, "ckpt_flat.leann")
-    seen = {}
-    real_exact_knn = graph.exact_knn
-
-    def recording_exact_knn(emb, k, *a, **kw):  # keeps the build's embeddings and k; launches nothing itself
-        seen["emb"], seen["k"] = emb, k
-        return real_exact_knn(emb, k, *a, **kw)
-
-    _reset(counters)
-    builder = LeannBuilder(backend_name="diskann", embedding_model=ckpt, max_length=128, graph_degree=32)
-    for c in chunks:
-        builder.add_text(c)
-    graph.exact_knn = recording_exact_knn
-    try:
-        torch.cuda.synchronize()
-        builder.build_index(prefix)
-        torch.cuda.synchronize()
-    finally:
-        graph.exact_knn = real_exact_knn
-    launches["checkpoint_diskann"] = _counts(counters)
-    build_phases = dict(builder.phase_seconds)
+    built = indexes_from_dir(torch, workdir, ckpt, "checkpoint", chunks, queries, counters, launches)
+    prefix, oracle_prefix, oracle_searcher, truth = (built[k] for k in (
+        "prefix", "oracle_prefix", "oracle_searcher", "truth"))
+    build_phases = dict(built["builder"].phase_seconds)
     enc = get_encoder(ckpt, max_length=128, device=dev)
     tok, tok_lengths = load_token_cache(prefix)
     unk_share = float((tok == enc.tokenizer.unk_id).mean()) if isinstance(enc.tokenizer, HFTokenizer) else None
-
-    _reset(counters)
-    oracle = LeannBuilder(backend_name="flat", embedding_model=ckpt, max_length=128)
-    for c in chunks:
-        oracle.add_text(c)
-    oracle.build_index(oracle_prefix)
-    oracle_searcher = LeannSearcher(oracle_prefix)
-    truth = oracle_searcher.search(queries, top_k=3)
-    torch.cuda.synchronize()
-    launches["checkpoint_oracle"] = _counts(counters)
     calib = {name: np.load(p + ".calib.npz") for name, p in (("diskann", prefix), ("flat", oracle_prefix))
              if os.path.exists(p + ".calib.npz")}
     calib_diff = (max(float(np.abs(calib["diskann"][k] - calib["flat"][k]).max()) for k in ("out_center", "out_pc"))
@@ -1339,23 +1366,11 @@ def phase_checkpoint(torch, dev, workdir: str, chunks, queries):
 
     # each kernel at this path's shapes, on its inputs
     kr = {}
-    ebf, norms = kp.upload_panel_inputs(seen["emb"], dev)
-    kr[("knn_panel", "checkpoint_diskann")] = panel_row(torch, kp, ebf, norms, seen["k"])
+    ebf, norms = kp.upload_panel_inputs(built["emb"], dev)
+    kr[("knn_panel", "checkpoint_diskann")] = panel_row(torch, kp, ebf, norms, built["k"])
     del ebf, norms
     torch.cuda.empty_cache()
-    be = oracle_searcher.backend
-    q = be.get_encoder().encode(queries)
-    q = pad_features(torch.from_numpy(q / np.linalg.norm(q, axis=1, keepdims=True)).to(dev))
-    n_flat, d_pad = be.n, be._emb.shape[1]
-    ik, dk = flat_topk(q, be._emb, be._en, n_flat, 3, "cosine")
-    (ip, dp), p_ms = timed_once(torch, lambda: flat_search(be._emb, q, n_flat, 3, "cosine", en=be._en))
-    qb = q.to(torch.bfloat16)
-    kr[("flat_topk", "checkpoint_oracle")] = {
-        "shape": [q.shape[0], n_flat, d_pad], "k": 3, "overlap": overlap(ik, ip),
-        "max_abs_err": float((dk - dp).abs().max()),
-        **timed_row(torch, lambda: flat_topk(q, be._emb, be._en, n_flat, 3, "cosine"), p_ms,
-                    lambda: torch.topk(qb @ be._emb.T, 3), n_flat * d_pad * 2 + q.shape[0] * d_pad * 4
-                    + q.shape[0] * 3 * 8, 2.0 * q.shape[0] * n_flat * d_pad, reps=10)}
+    kr[("flat_topk", "checkpoint_oracle")] = oracle_row(torch, dev, oracle_searcher, queries)
 
     row = {"phase": "checkpoint", "n_chunks": len(chunks), "model": "all-MiniLM-L6-v2 widths, seeded weights",
            "hf_config": {k: hf_config[k] for k in ("vocab_size", "hidden_size", "num_hidden_layers",
@@ -1364,7 +1379,7 @@ def phase_checkpoint(torch, dev, workdir: str, chunks, queries):
            "write_checkpoint_s": write_s, "loaded_hf": enc.loaded_hf, "tokenizer": type(enc.tokenizer).__name__,
            "unk_share": unk_share, "mean_tokens": float(tok_lengths.mean()),
            "calib_files": sorted(calib), "calib_max_diff": calib_diff,
-           "build_s": build_phases, "flat_build_s": dict(oracle.phase_seconds), "knn_k": seen["k"],
+           "build_s": build_phases, "flat_build_s": dict(built["oracle"].phase_seconds), "knn_k": built["k"],
            "recall_at_3": recall, "search_ms_per_query": ms_q, "search_kw": SEARCH_KW,
            "batcher": {"max_batch": 16, "max_wait_ms": 2, "threads": 8, "ms_per_query": batcher_ms_q,
                        "batches_run": n_batches, "mean_batch": n_q / max(n_batches, 1),
@@ -1384,8 +1399,8 @@ def phase_checkpoint(torch, dev, workdir: str, chunks, queries):
         fail(f"[UNK] share {unk_share} on the corpus")
     if calib_diff is None or calib_diff > 1e-6:
         fail(f"the two builds' .calib.npz are missing or differ: {sorted(calib)}, max diff {calib_diff}")
-    if launches["checkpoint_diskann"]["knn_panel"] != 1 or seen["k"] != 64:
-        fail(f"the diskann build did not launch knn_panel once at k = 64: {launches}, k {seen['k']}")
+    if launches["checkpoint_diskann"]["knn_panel"] != 1 or built["k"] != 64:
+        fail(f"the diskann build did not launch knn_panel once at k = 64: {launches}, k {built['k']}")
     if launches["checkpoint_oracle"]["flat_topk"] != 1:
         fail(f"the oracle did not launch flat_topk once: {launches}")
     if recall < 0.80:
@@ -1394,9 +1409,185 @@ def phase_checkpoint(torch, dev, workdir: str, chunks, queries):
         fail(f"the batcher's labels differ from the direct search's beyond near-ties: {differing}")
     if not (tokens_equal and passages_equal):
         fail(f"native and Python paths disagree: tokens {tokens_equal}, passages {passages_equal}")
+    check_rows(kr)
+    return kr, launches, {"ckpt": ckpt, "got": got, "truth": truth}
+
+
+def check_rows(kr) -> None:
     for (name, path), r in kr.items():
         if r["overlap"] < 0.999 or r["max_abs_err"] > 1e-5 or r.get("self_hits", 0):
             fail(f"{name} on {path} disagrees with its plain version: {r}")
+
+
+def oracle_row(torch, dev, oracle_searcher, queries) -> dict:
+    """flat_topk at k = 3 over a flat index's rows, with the oracle's query
+    vectors: checked against its plain version, and timed."""
+    from leann_torch.ops.distance import flat_search, pad_features
+    from leann_torch.ops.flat_topk import flat_topk
+
+    be = oracle_searcher.backend
+    q = be.get_encoder().encode(queries)
+    q = pad_features(torch.from_numpy(q / np.linalg.norm(q, axis=1, keepdims=True)).to(dev))
+    n_flat, d_pad = be.n, be._emb.shape[1]
+    ik, dk = flat_topk(q, be._emb, be._en, n_flat, 3, "cosine")
+    (ip, dp), p_ms = timed_once(torch, lambda: flat_search(be._emb, q, n_flat, 3, "cosine", en=be._en))
+    qb = q.to(torch.bfloat16)
+    return {"shape": [q.shape[0], n_flat, d_pad], "k": 3, "overlap": overlap(ik, ip),
+            "max_abs_err": float((dk - dp).abs().max()),
+            **timed_row(torch, lambda: flat_topk(q, be._emb, be._en, n_flat, 3, "cosine"), p_ms,
+                        lambda: torch.topk(qb @ be._emb.T, 3), n_flat * d_pad * 2 + q.shape[0] * d_pad * 4
+                        + q.shape[0] * 3 * 8, 2.0 * q.shape[0] * n_flat * d_pad, reps=10)}
+
+# phase 10: benchmarks/train_encoder.py:65-67's batch and learning rate; its
+# 800 steps cut to 200 for the smoke's time
+TRAIN_STEPS, TRAIN_BATCH, TRAIN_LR = 200, 256, 1e-4
+TRAIN_Q_LEN, TRAIN_D_LEN = 32, 128
+
+
+def _hits(results, q_idx) -> float:
+    """Share of the queries whose source chunk is among their results."""
+    return float(np.mean([str(int(i)) in {r.id for r in row} for i, row in zip(q_idx, results)]))
+
+
+def phase_repair(torch, main: dict) -> dict:
+    """The searches read no precision flag: phase 4's diskann and phase 5's
+    hnsw searches under "highest" and then under a caller's "high" (TF32
+    products allowed) give identical labels and scores, and a caller who set
+    "high" reads "high" after a BatchedSearcher batch."""
+    from leann_torch import BatchedSearcher, LeannSearcher
+
+    queries = main["queries"]
+    paths = {}
+    prev = torch.get_float32_matmul_precision()
+    try:
+        for name, prefix, kw, first in (("diskann", main["prefix"], main["kw"], main["got"]),
+                                        ("hnsw", main["hnsw_prefix"], main["hnsw_kw"], main["hnsw_got"])):
+            searcher = LeannSearcher(prefix)
+            res = {}
+            for precision in ("highest", "high"):
+                torch.set_float32_matmul_precision(precision)
+                got, ms = _timed_search(torch, searcher, queries, **kw)
+                res[precision] = (_labels_scores(got), ms)
+            (la, sa), (lb, sb) = res["highest"][0], res["high"][0]
+            paths[name] = {"identical": bool(la == lb and np.array_equal(sa, sb)),
+                           "labels_differing": int(sum(a != b for a, b in zip(la, lb))),
+                           "max_score_diff": float(np.abs(sa - sb).max()),
+                           "same_as_first_run": _labels_scores(first)[0] == la,
+                           "ms_per_query_highest": res["highest"][1], "ms_per_query_high": res["high"][1]}
+        torch.set_float32_matmul_precision("high")
+        with BatchedSearcher(LeannSearcher(main["prefix"]), max_batch=16, max_wait_ms=2) as bs:
+            bs.search(queries[0], timeout=600, **main["kw"])
+        after_batch = torch.get_float32_matmul_precision()
+    finally:
+        torch.set_float32_matmul_precision(prev)
+    row = {"phase": "precision_repair", "paths": paths, "setting_after_batch": after_batch}
+    emit(row)
+    if not all(p["identical"] for p in paths.values()):
+        fail(f"a search under a caller's 'high' differs from the same search under 'highest': {paths}")
+    if after_batch != "high":
+        fail(f"the caller's 'high' read {after_batch!r} after a BatchedSearcher batch")
+    return row
+
+
+def phase_train(torch, dev, workdir: str, main: dict, ckpt_state: dict):
+    """Phase 10 -> (kernel rows by (kernel, path), launches by path)."""
+    from leann_torch import LeannSearcher
+    from leann_torch.embeddings.encoder import load_hf_weights, save_hf_weights
+    from leann_torch.embeddings.tokenizer import HFTokenizer
+    from leann_torch.ops import knn_panel as kp
+    from leann_torch.ops.flat_topk import flat_topk
+    from leann_torch.parallel.train import ContrastiveTrainer
+    from leann_torch.storage import index_all_in_bytes
+
+    chunks, queries, q_idx = main["chunks"], main["queries"], main["q_idx"]
+    ckpt = ckpt_state["ckpt"]
+    counters = (flat_topk, kp.knn_panel, kp.knn_panel_ext, kp.topk_merge)
+    launches = {}
+
+    # the pairs: (12-word prefix -> chunk), the 64 eval chunks left out
+    rng = np.random.default_rng(10)
+    picks = rng.choice(np.setdiff1d(np.arange(len(chunks)), q_idx), TRAIN_STEPS * TRAIN_BATCH, replace=False)
+    tok = HFTokenizer(ckpt, max_length=TRAIN_D_LEN)
+    t = time.time()
+    q_ids, q_mask = tok.encode_batch([" ".join(chunks[i].split()[:12]) for i in picks], TRAIN_Q_LEN)
+    d_ids, d_mask = tok.encode_batch([chunks[i] for i in picks], TRAIN_D_LEN)
+    tokenize_s = time.time() - t
+
+    def batch(step):
+        sl = slice(step * TRAIN_BATCH, (step + 1) * TRAIN_BATCH)
+        return q_ids[sl], q_mask[sl], d_ids[sl], d_mask[sl]
+
+    params, cfg = load_hf_weights(ckpt)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset(counters)
+    trainer = ContrastiveTrainer(cfg, learning_rate=TRAIN_LR, params=params, device=dev)
+    losses, step_s = [], []
+    t0 = time.time()
+    for step in range(TRAIN_STEPS - 1):
+        t = time.time()
+        losses.append(trainer.train_step(*batch(step)))  # a float: the step has ended on the card
+        step_s.append(time.time() - t)
+    profile = search_profile(torch, lambda: losses.append(trainer.train_step(*batch(TRAIN_STEPS - 1))))
+    train_s = time.time() - t0
+    peak_gb = torch.cuda.max_memory_allocated() / 2**30
+    launches["train"] = _counts(counters)
+    warm = range(5, TRAIN_STEPS - 1)
+    warm_s = sum(step_s[i] for i in warm)
+    real_tokens = sum(int(q_mask[i * TRAIN_BATCH:(i + 1) * TRAIN_BATCH].sum())
+                      + int(d_mask[i * TRAIN_BATCH:(i + 1) * TRAIN_BATCH].sum()) for i in warm)
+
+    tuned = os.path.join(workdir, "minilm-l6-tuned")
+    t = time.time()
+    save_hf_weights(trainer.params, cfg, tuned)
+    save_s = time.time() - t
+    for f in ("vocab.txt", "tokenizer_config.json"):
+        shutil.copy(os.path.join(ckpt, f), tuned)
+    del trainer, params
+    torch.cuda.empty_cache()
+
+    # the diskann index (phase 4's settings) and the flat oracle from the trained directory
+    built = indexes_from_dir(torch, workdir, tuned, "trained", chunks, queries, counters, launches)
+    truth = built["truth"]
+    got, ms_q = _timed_search(torch, LeannSearcher(built["prefix"]), queries, **SEARCH_KW)
+    recall = _recall(got, truth)
+
+    kr = {}
+    ebf, norms = kp.upload_panel_inputs(built["emb"], dev)
+    kr[("knn_panel", "trained_diskann")] = panel_row(torch, kp, ebf, norms, built["k"])
+    del ebf, norms
+    torch.cuda.empty_cache()
+    kr[("flat_topk", "trained_oracle")] = oracle_row(torch, dev, built["oracle_searcher"], queries)
+
+    row = {"phase": "train", "model": "all-MiniLM-L6-v2 widths, phase 9's seeded checkpoint",
+           "pairs": len(picks), "steps": TRAIN_STEPS, "batch": TRAIN_BATCH, "lr": TRAIN_LR,
+           "q_len": TRAIN_Q_LEN, "d_len": TRAIN_D_LEN, "tokenize_s": tokenize_s,
+           "loss_first": losses[0], "loss_last": losses[-1], "loss_every_20": losses[::20],
+           "train_s": train_s, "warm_ms_per_step": warm_s * 1e3 / len(warm),
+           "first_step_ms": step_s[0] * 1e3,
+           "tokens_per_s_real": real_tokens / warm_s,
+           "tokens_per_s_padded": len(warm) * TRAIN_BATCH * (TRAIN_Q_LEN + TRAIN_D_LEN) / warm_s,
+           "peak_mem_gb": peak_gb, "save_checkpoint_s": save_s,
+           "build_s": dict(built["builder"].phase_seconds), "flat_build_s": dict(built["oracle"].phase_seconds),
+           "knn_k": built["k"], "recall_at_3": recall, "search_ms_per_query": ms_q,
+           "hit_at_3": {"before": {"diskann": _hits(ckpt_state["got"], q_idx),
+                                   "oracle": _hits(ckpt_state["truth"], q_idx)},
+                        "after": {"diskann": _hits(got, q_idx), "oracle": _hits(truth, q_idx)}},
+           "all_in_bytes": index_all_in_bytes(built["prefix"]), "launches": launches,
+           "kernels": {f"{name}@{path}": {key: v for key, v in r.items() if key != "kernel_parts_ms"}
+                       for (name, path), r in kr.items()},
+           "reduced": "800 steps (benchmarks/train_encoder.py) cut to 200 for the smoke's time"}
+    emit(row)
+    emit({"phase": "train_step_profile", **profile})
+    if not (np.isfinite(losses).all() and losses[-1] < losses[0]):
+        fail(f"the training loss did not fall: {losses[0]} -> {losses[-1]}")
+    if launches["trained_diskann"]["knn_panel"] != 1 or built["k"] != 64:
+        fail(f"the trained checkpoint's build did not launch knn_panel once at k = 64: {launches}, k {built['k']}")
+    if launches["trained_oracle"]["flat_topk"] != 1:
+        fail(f"the trained checkpoint's oracle did not launch flat_topk once: {launches}")
+    if recall < 0.80:
+        fail(f"trained-checkpoint recall@3 {recall:.4f} below the 0.80 sanity floor")
+    check_rows(kr)
     return kr, launches
 
 
@@ -1452,8 +1643,11 @@ def main() -> int:
         launches["hnsw"] = phase_hnsw_path(torch, workdir, main_state)
         more = [phase_beyond_card_knn(torch, dev, seed=6),
                 phase_beyond_card_path(torch, dev, workdir, main_state, seed=7),
-                phase_lifecycle(torch, dev, workdir, main_state),
-                phase_checkpoint(torch, dev, workdir, main_state["chunks"], main_state["queries"])]
+                phase_lifecycle(torch, dev, workdir, main_state)]
+        *ckpt_rows, ckpt_state = phase_checkpoint(torch, dev, workdir, main_state["chunks"], main_state["queries"])
+        more.append(tuple(ckpt_rows))
+        phase_repair(torch, main_state)
+        more.append(phase_train(torch, dev, workdir, main_state, ckpt_state))
     for kr, more_launches in more:
         launches.update(more_launches)
         rows += [(name, path, r, b1 if name == "flat_topk" else b2) for (name, path), r in kr.items()]

@@ -16,7 +16,7 @@ from typing import Any, Dict, List, Optional
 import numpy as np
 import torch
 
-from ..device import f32_matmuls, resolve_device
+from ..device import resolve_device
 from ..embeddings.compute import IN_PROCESS_MODES, compute_embeddings
 from ..embeddings.encoder import encode_tokens
 from ..ops.beam_search import (GraphData, beam_search_adaptive, beam_search_batch_packed,
@@ -179,8 +179,7 @@ class GraphSearcher(BaseSearcher):
     embeddings, the entry pool with its embeddings and the token store, all
     on the searcher's device (absent parts None), and the search calls. A
     subclass loads its npz with :meth:`_load` and gives ``_make_cfg(top_k,
-    **search_kwargs) -> (BeamConfig, encoder params)``. Both searches run
-    under :func:`~leann_torch.device.f32_matmuls` and take
+    **search_kwargs) -> (BeamConfig, encoder params)``. Both searches take
     ``adaptive_steps`` > 0 for the two-phase batched search
     (``ops/beam_search.beam_search_adaptive``): the batch runs with the step
     budget capped there, then only the lanes that reached the cap run again
@@ -263,13 +262,11 @@ class GraphSearcher(BaseSearcher):
         return {"labels": labels[:real_b], "distances": dists[:real_b]}
 
     @torch.no_grad()
-    @f32_matmuls()
     def search(self, query: np.ndarray, top_k: int, adaptive_steps: int = 0, **kwargs) -> Dict[str, np.ndarray]:
         cfg, enc_params = self._make_cfg(top_k, **kwargs)
         return self._run(*self._query_batch(query), cfg, enc_params, int(adaptive_steps or 0))
 
     @torch.no_grad()
-    @f32_matmuls()
     def search_text(self, query: "str | list", top_k: int, adaptive_steps: int = 0,
                     **kwargs) -> Dict[str, np.ndarray]:
         """Encode the query batch on the device and search it: one fused

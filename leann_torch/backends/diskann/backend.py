@@ -31,7 +31,7 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
-from ...device import f32_matmuls, resolve_device
+from ...device import resolve_device
 from ...interface import (
     LeannBackendBuilderInterface,
     LeannBackendFactoryInterface,
@@ -85,7 +85,6 @@ class DiskannBuilder(LeannBackendBuilderInterface):
         self.build_checkpoint_dir = build_checkpoint_dir
         self.phase_seconds: Dict[str, float] = {}
 
-    @f32_matmuls()
     def build(self, data: np.ndarray, ids: list, index_path: str, **kwargs) -> None:
         if data.dtype != np.float16:
             data = np.ascontiguousarray(data, dtype=np.float32)
@@ -223,7 +222,6 @@ class DiskannSearcher(GraphSearcher, LeannBackendSearcherInterface):
                         self.tokens_host.nbytes / 2**30)
 
     @torch.no_grad()
-    @f32_matmuls()
     def search(self, query: np.ndarray, top_k: int, adaptive_steps: int = 0, **kwargs) -> Dict[str, np.ndarray]:
         if self.tokens_host is not None and kwargs.get("recompute_embeddings", True):
             return self._search_host_rerank(*self._query_batch(query), top_k,
@@ -231,7 +229,6 @@ class DiskannSearcher(GraphSearcher, LeannBackendSearcherInterface):
         return super().search(query, top_k, adaptive_steps=adaptive_steps, **kwargs)
 
     @torch.no_grad()
-    @f32_matmuls()
     def search_text(self, query: "str | list", top_k: int, adaptive_steps: int = 0,
                     **kwargs) -> Dict[str, np.ndarray]:
         if self.tokens_host is not None and kwargs.get("recompute_embeddings", True):

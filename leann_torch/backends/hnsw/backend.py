@@ -29,7 +29,7 @@ from typing import Any, Dict
 
 import numpy as np
 
-from ...device import f32_matmuls, resolve_device
+from ...device import resolve_device
 from ...interface import (
     LeannBackendBuilderInterface,
     LeannBackendFactoryInterface,
@@ -87,7 +87,6 @@ class HnswBuilder(LeannBackendBuilderInterface):
         self.build_checkpoint_dir = build_checkpoint_dir
         self.phase_seconds: Dict[str, float] = {}
 
-    @f32_matmuls()
     def build(self, data: np.ndarray, ids: list, index_path: str, **kwargs) -> None:
         if data.dtype != np.float16:
             data = np.ascontiguousarray(data, dtype=np.float32)

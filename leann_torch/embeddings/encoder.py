@@ -7,9 +7,12 @@ the same length/batch bucketing, so an index built by either package is
 searched with identical embeddings by the other.
 
 Numerics, each kept on purpose:
-  * the matrix products take bf16-rounded operands and accumulate in f32
-    (operands are rounded to bf16, widened back and multiplied in f32, which
-    is what ``preferred_element_type=f32`` on bf16 inputs computes);
+  * the matrix products take bf16-rounded operands and accumulate in f32,
+    which is what ``preferred_element_type=f32`` on bf16 inputs computes;
+    the attention scores (f32 q and k, as in the JAX package) and every
+    product at ``compute_dtype="float32"`` take their operands in full. All
+    go through :func:`~leann_torch.device.matmul`, so no precision flag of
+    the caller's changes them;
   * LayerNorm eps is 1e-6, the prenorm arch uses tanh-GELU, the bert arch
     erf-GELU;
   * attention is written out, masked with ``finfo(float32).min``, with the
@@ -38,7 +41,7 @@ from typing import Dict, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from ..device import resolve_device
+from ..device import matmul, resolve_device
 from . import seeded
 from .tokenizer import get_tokenizer, stable_hash
 
@@ -177,8 +180,12 @@ _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32, "float16": torc
 
 
 def _round(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
-    """Round to ``dtype`` and widen back: the operand a bf16 product sees."""
-    return x if dtype == torch.float32 else x.to(dtype).float()
+    """The operand a product at ``dtype`` sees: x rounded to bf16 (or f16,
+    widened back to f32, which bf16 products do not take), or x itself at
+    float32."""
+    if dtype == torch.float32:
+        return x
+    return x.to(dtype) if dtype == torch.bfloat16 else x.to(dtype).float()
 
 
 def _layer_norm(x, p, eps=1e-6):
@@ -189,7 +196,7 @@ def _layer_norm(x, p, eps=1e-6):
 
 
 def _dense(x, p, dtype):
-    return _round(x, dtype) @ _round(p["w"], dtype) + p["b"]
+    return matmul(_round(x, dtype), _round(p["w"], dtype)) + p["b"]
 
 
 def _attention(x, mask, layer, cfg: EncoderConfig, dtype):
@@ -198,11 +205,11 @@ def _attention(x, mask, layer, cfg: EncoderConfig, dtype):
     q = _dense(x, layer["q"], dtype).reshape(B, T, H, hd).transpose(1, 2)  # [B, H, T, hd]
     k = _dense(x, layer["k"], dtype).reshape(B, T, H, hd).transpose(1, 2)
     v = _dense(x, layer["v"], dtype).reshape(B, T, H, hd).transpose(1, 2)
-    scores = (q @ k.transpose(-1, -2)) / math.sqrt(hd)  # [B, H, T, S] f32
+    scores = matmul(q, k.transpose(-1, -2)) / math.sqrt(hd)  # [B, H, T, S] f32
     neg = torch.finfo(torch.float32).min
     scores = scores.masked_fill(~(mask[:, None, None, :] > 0), neg)
     probs = torch.softmax(scores, dim=-1)
-    ctx = _round(probs, dtype) @ _round(v, dtype)  # [B, H, T, hd]
+    ctx = matmul(_round(probs, dtype), _round(v, dtype))  # [B, H, T, hd]
     return _dense(ctx.transpose(1, 2).reshape(B, T, D), layer["o"], dtype)
 
 
@@ -235,7 +242,7 @@ def encode_tokens(params: Dict, ids: torch.Tensor, mask: torch.Tensor, cfg: Enco
         pooled = pooled - params["out_center"]
         if "out_pc" in params:
             pc = params["out_pc"]  # [D, k] corpus-calibrated top directions
-            pooled = pooled - (pooled @ pc) @ pc.T
+            pooled = pooled - matmul(matmul(pooled, pc), pc.T)
     if cfg.normalize:
         pooled = pooled / pooled.norm(dim=-1, keepdim=True).clamp_min(1e-12)
     return pooled

@@ -42,6 +42,7 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
+from ..device import matmul
 from ..embeddings.encoder import EncoderConfig, encode_tokens
 from .pq import adc_distances, adc_lut
 
@@ -92,11 +93,10 @@ def _metric_dists(q: torch.Tensor, e: torch.Tensor, metric: str) -> torch.Tensor
     """q [B, D], e [B, C, D] (or shared [C, D]) -> dists [B, C] f32
     (lower = closer)."""
     q = q.float()
-    e = e.float()
-    dots = q @ e.T if e.dim() == 2 else torch.bmm(e, q[:, :, None])[:, :, 0]
+    dots = matmul(q, e.T) if e.dim() == 2 else matmul(e, q[:, :, None])[:, :, 0]
     if metric in ("mips", "cosine"):
         return -dots
-    en = e.square().sum(-1)
+    en = e.float().square().sum(-1)
     return q.square().sum(-1, keepdim=True) + (en[None, :] if e.dim() == 2 else en) - 2.0 * dots
 
 

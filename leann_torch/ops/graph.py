@@ -33,7 +33,7 @@ from typing import Dict, Optional, Tuple
 import numpy as np
 import torch
 
-from ..device import f32_matmuls, resolve_device
+from ..device import matmul, resolve_device
 from .distance import INF
 from .knn_panel import knn_panel, knn_panel_ext, topk_merge, upload_panel_inputs
 from .pq import _bucket_sample, decode_pq, encode_pq, train_pq
@@ -424,14 +424,14 @@ def _robust_prune_device(ebf: torch.Tensor, norms: torch.Tensor, cand: torch.Ten
     out = []
     for s in range(0, cand.shape[0], block):
         cid = cand[s : s + block]
-        pe = ebf[row_start + s : row_start + s + block].float()
+        pe = ebf[row_start + s : row_start + s + block]
         pn = norms[row_start + s : row_start + s + block]
         safe = cid.clamp(0, n - 1)
-        cemb = ebf[safe].float()  # [B, C, D]
+        cemb = ebf[safe]  # [B, C, D]
         cn = norms[safe]
-        dots = torch.bmm(cemb, pe[:, :, None])[:, :, 0]
+        dots = matmul(cemb, pe[:, :, None])[:, :, 0]
         d_pc = torch.where(cid >= 0, pn[:, None] + cn - 2.0 * dots, torch.full_like(dots, INF))
-        cc = torch.bmm(cemb, cemb.transpose(1, 2))
+        cc = matmul(cemb, cemb.transpose(1, 2))
         d_cc = cn[:, :, None] + cn[:, None, :] - 2.0 * cc
         out.append(_prune_select(cid, d_pc, d_cc, r, alpha, keep_closest))
     return torch.cat(out)
@@ -452,19 +452,18 @@ def _robust_prune_pq_device(codes: torch.Tensor, codebooks: torch.Tensor, pe: to
     out = []
     for s in range(0, cand.shape[0], block):
         cid = cand[s : s + block]
-        p = pe[s : s + block].float()
-        pn = p.square().sum(dim=1)
-        cemb = decode_pq(cbf, codes[cid.clamp(0, n - 1)]).float()  # [B, C, D]
-        cn = cemb.square().sum(dim=2)
-        dots = torch.bmm(cemb, p[:, :, None])[:, :, 0]
+        p = pe[s : s + block]
+        pn = p.float().square().sum(dim=1)
+        cemb = decode_pq(cbf, codes[cid.clamp(0, n - 1)])  # [B, C, D] bf16
+        cn = cemb.float().square().sum(dim=2)
+        dots = matmul(cemb, p[:, :, None])[:, :, 0]
         d_pc = torch.where(cid >= 0, pn[:, None] + cn - 2.0 * dots, torch.full_like(dots, INF))
-        cc = torch.bmm(cemb, cemb.transpose(1, 2))
+        cc = matmul(cemb, cemb.transpose(1, 2))
         d_cc = cn[:, :, None] + cn[:, None, :] - 2.0 * cc
         out.append(_prune_select(cid, d_pc, d_cc, r, alpha, keep_closest))
     return torch.cat(out)
 
 
-@f32_matmuls()
 def robust_prune_explicit(p_emb: torch.Tensor, cand_ids: torch.Tensor, cand_emb: torch.Tensor, r: int,
                           alpha: float, keep_closest: int) -> torch.Tensor:
     """Vamana robust prune over explicit candidate embeddings: p_emb f32
@@ -474,14 +473,14 @@ def robust_prune_explicit(p_emb: torch.Tensor, cand_ids: torch.Tensor, cand_emb:
     live index, whose embeddings may exist only as re-encodes, so the caller
     passes the gathered block. Products of bf16-rounded operands in f32,
     squared norms of the f32 rows, as the JAX package's einsums."""
-    pe = p_emb.to(torch.bfloat16).float()
-    ce = cand_emb.to(torch.bfloat16).float()
+    pe = p_emb.to(torch.bfloat16)
+    ce = cand_emb.to(torch.bfloat16)
     pn = p_emb.float().square().sum(dim=1)
     cn = cand_emb.float().square().sum(dim=-1)
-    dots = torch.bmm(ce, pe[:, :, None])[:, :, 0]
+    dots = matmul(ce, pe[:, :, None])[:, :, 0]
     cid = cand_ids.long()
     d_pc = torch.where(cid >= 0, pn[:, None] + cn - 2.0 * dots, torch.full_like(dots, INF))
-    d_cc = cn[:, :, None] + cn[:, None, :] - 2.0 * torch.bmm(ce, ce.transpose(1, 2))
+    d_cc = cn[:, :, None] + cn[:, None, :] - 2.0 * matmul(ce, ce.transpose(1, 2))
     return _prune_select(cid, d_pc, d_cc, r, alpha, keep_closest)
 
 

@@ -28,7 +28,6 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
-from ..device import f32_matmuls
 from .graph import robust_prune_explicit
 
 logger = logging.getLogger(__name__)
@@ -99,7 +98,6 @@ def _prune_batch(p_emb: torch.Tensor, cand_ids: np.ndarray, cand_emb: torch.Tens
 
 
 @torch.no_grad()
-@f32_matmuls()
 def insert_batch(searcher, new_emb: np.ndarray, ef: int = 64,
                  alpha: float = 1.2) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
     """Insert a batch of new nodes, ``new_emb`` f32 [B, D] (already

@@ -23,7 +23,7 @@ import time
 import numpy as np
 import torch
 
-from ..device import resolve_device
+from ..device import matmul, resolve_device
 
 logger = logging.getLogger(__name__)
 
@@ -43,7 +43,7 @@ def choose_m(dim: int, target_m: int = 0) -> int:
 
 def _sq_dists(x: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
     """x [M, S, ds], c [M, K, ds] -> [M, S, K] squared L2 (f32)."""
-    return x.square().sum(-1, keepdim=True) - 2.0 * torch.bmm(x, c.transpose(1, 2)) + c.square().sum(-1)[:, None, :]
+    return x.square().sum(-1, keepdim=True) - 2.0 * matmul(x, c.transpose(1, 2)) + c.square().sum(-1)[:, None, :]
 
 
 def _assign(x: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
@@ -70,9 +70,9 @@ def _kmeans_all_subspaces(xs: torch.Tensor, init: torch.Tensor, n_iters: int) ->
         counts = torch.empty((m, k), dtype=torch.float32, device=xs.device)
         sums = torch.empty((m, k, ds), dtype=torch.float32, device=xs.device)
         for i in range(0, m, step):
-            one_hot = torch.nn.functional.one_hot(a[i : i + step], k).to(torch.float32)  # [m', S, K]
-            counts[i : i + step] = one_hot.sum(dim=1)
-            sums[i : i + step] = torch.bmm(one_hot.transpose(1, 2), xs[i : i + step])
+            one_hot = torch.nn.functional.one_hot(a[i : i + step], k).to(torch.bfloat16)  # [m', S, K], exact
+            counts[i : i + step] = one_hot.sum(dim=1, dtype=torch.float32)
+            sums[i : i + step] = matmul(one_hot.transpose(1, 2), xs[i : i + step])
         c = torch.where(counts[:, :, None] > 0, sums / counts.clamp_min(1.0)[:, :, None], c)
     return c
 
@@ -113,13 +113,13 @@ def _opq_iter(x: torch.Tensor, r: torch.Tensor, cb: torch.Tensor, n_kmeans: int)
     x [S, D], r [D, D], cb [M, K, ds] -> (cb', XtY [D, D], mse)."""
     s, d = x.shape
     m, k, ds = cb.shape
-    xr = x @ r
+    xr = matmul(x, r)
     xs = xr.reshape(s, m, ds).transpose(0, 1).contiguous()  # [M, S, ds]
     cb = _kmeans_all_subspaces(xs, cb, n_kmeans)
     codes = _assign(xs, cb)  # [M, S]
     recon = torch.gather(cb, 1, codes[:, :, None].expand(m, s, ds))  # [M, S, ds]
     y = recon.transpose(0, 1).reshape(s, d)
-    xty = x.T @ y
+    xty = matmul(x.T, y)
     mse = (xr - y).square().sum(1).mean()
     return cb, xty, mse
 
@@ -164,7 +164,7 @@ def lift_codebooks(rotation: np.ndarray, cb: np.ndarray) -> np.ndarray:
     d = rotation.shape[0]
     m, k, ds = cb.shape
     r_blocks = torch.tensor(rotation.reshape(d, m, ds).transpose(1, 0, 2), dtype=torch.float32)
-    return torch.bmm(torch.tensor(cb, dtype=torch.float32), r_blocks.transpose(1, 2)).numpy()
+    return matmul(torch.tensor(cb, dtype=torch.float32), r_blocks.transpose(1, 2)).numpy()
 
 
 def encode_pq(x: torch.Tensor, codebooks: torch.Tensor) -> torch.Tensor:
@@ -173,7 +173,7 @@ def encode_pq(x: torch.Tensor, codebooks: torch.Tensor) -> torch.Tensor:
     x = x.float()
     m, k, ds = codebooks.shape
     if m * ds != x.shape[1]:  # lifted: argmin_k ||B||^2 - 2 x.B
-        dots = (x @ codebooks.reshape(m * k, -1).T).reshape(x.shape[0], m, k)
+        dots = matmul(x, codebooks.reshape(m * k, -1).T).reshape(x.shape[0], m, k)
         d = codebooks.square().sum(-1)[None] - 2.0 * dots
         return d.argmin(dim=2).to(torch.uint8)
     xs = x.reshape(x.shape[0], m, ds).transpose(0, 1).contiguous()  # [M, B, ds]
@@ -211,7 +211,7 @@ def adc_lut(q: torch.Tensor, codebooks: torch.Tensor, metric: str) -> torch.Tens
     m, k, ds = codebooks.shape
     q = q.float()
     if m * ds != q.shape[-1]:  # lifted
-        dots = (q @ codebooks.reshape(m * k, -1).T).reshape(*q.shape[:-1], m, k)
+        dots = matmul(q, codebooks.reshape(m * k, -1).T).reshape(*q.shape[:-1], m, k)
         if metric in ("mips", "cosine"):
             return -dots
         # + ||q||^2/M so sum_m lut = full ||qR - recon||^2 (absolute scale)

@@ -17,11 +17,9 @@ Usage::
     hits = fut.result()
     bs.close()
 
-The searches run on the worker thread only. The searchers' full-f32 scope
-(:func:`~leann_torch.device.f32_matmuls`) is entered there, around each
-batch's search and no longer, and is left on an exception too; torch's
-precision flag is process-wide, so a caller thread's own products that
-overlap a batch run in full f32 while it lasts.
+The searches run on the worker thread only. They set none of torch's
+process-wide precision flags, so a caller thread's own setting holds
+before, during and after a batch.
 """
 
 from __future__ import annotations

@@ -1,9 +1,7 @@
 """leann_torch's BatchedSearcher (CPU): the six cases of tests/test_batcher.py
 on a small port index (coalescing, equality with direct search, parameter
 isolation, error propagation, shutdown, an existing searcher), the same
-labels as the JAX package's BatchedSearcher on the same index, and the
-full-f32 scope entered only on the worker thread and left after a failed
-batch."""
+labels as the JAX package's BatchedSearcher on the same index."""
 
 import threading
 
@@ -116,76 +114,3 @@ def test_labels_equal_jax_batcher(built_index):
         futs = {q: bs.submit(q, **KW) for q in QUERIES}
         got = {q: [r.id for r in f.result(timeout=120)] for q, f in futs.items()}
     assert np.mean([got[q] == want[q] for q in QUERIES]) >= 0.875  # own seeded weights on each side
-
-
-def test_full_f32_only_on_the_worker(built_index, monkeypatch):
-    """The searches run on the worker thread inside the full-f32 scope; the
-    caller's setting is back after each batch, also after one that raised,
-    and with a direct search running beside the batcher."""
-    from leann_torch.backends import common as backend
-
-    seen = []
-    orig = backend.beam_search_text_batch_packed
-
-    def spy(*a, **kw):
-        seen.append((threading.current_thread().name, torch.get_float32_matmul_precision()))
-        return orig(*a, **kw)
-
-    monkeypatch.setattr(backend, "beam_search_text_batch_packed", spy)
-    prev = torch.get_float32_matmul_precision()
-    try:
-        torch.set_float32_matmul_precision("high")
-        with BatchedSearcher(built_index, max_batch=4, max_wait_ms=1.0, **CPU) as bs:
-            bs.search(QUERIES[0], timeout=120, **KW)
-            assert seen == [("leann-batcher", "highest")]
-            assert torch.get_float32_matmul_precision() == "high"
-            with pytest.raises(Exception):
-                bs.search("anything", timeout=120, top_k=2, pruning_strategy="not-a-strategy")
-            assert torch.get_float32_matmul_precision() == "high"
-            direct = LeannSearcher(built_index, device="cpu")
-            futs = [bs.submit(q, **KW) for q in QUERIES]
-            for q in QUERIES:
-                direct.search(q, **KW)
-            for f in futs:
-                f.result(timeout=120)
-        assert all(p == "highest" for _, p in seen)
-        assert torch.get_float32_matmul_precision() == "high"
-    finally:
-        torch.set_float32_matmul_precision(prev)
-
-
-def test_f32_scopes_overlapping_across_threads():
-    """Two threads' scopes that overlap (A enters, B enters, A leaves, B
-    leaves): full f32 holds until the last one leaves, then the caller's
-    setting comes back."""
-    from leann_torch.device import f32_matmuls
-
-    a_in, b_in, a_out = threading.Event(), threading.Event(), threading.Event()
-    seen = {}
-
-    def thread_a():
-        with f32_matmuls():
-            a_in.set()
-            b_in.wait(10)
-        a_out.set()
-
-    def thread_b():
-        a_in.wait(10)
-        with f32_matmuls():
-            b_in.set()
-            a_out.wait(10)
-            seen["b_after_a_left"] = torch.get_float32_matmul_precision()
-
-    prev = torch.get_float32_matmul_precision()
-    try:
-        torch.set_float32_matmul_precision("medium")
-        threads = [threading.Thread(target=f) for f in (thread_a, thread_b)]
-        for t in threads:
-            t.start()
-        for t in threads:
-            t.join(timeout=30)
-        assert not any(t.is_alive() for t in threads)
-        assert seen == {"b_after_a_left": "highest"}
-        assert torch.get_float32_matmul_precision() == "medium"
-    finally:
-        torch.set_float32_matmul_precision(prev)

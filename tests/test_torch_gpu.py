@@ -361,3 +361,111 @@ def test_native_libraries_build_and_match(tmp_path):
     store = NativePassageStore(str(path))
     assert len(store) == 500 and all(store.get(str(i))["text"] == texts[i] for i in range(500))
     store.close()
+
+
+def test_split_product_on_the_card_ignores_every_flag(cuda):
+    """leann_torch.device.matmul on the card: the same bits under every
+    float32 matmul precision and bf16-reduction setting, within 2^-21
+    |a| @ |b| of the f64 product, for f32 and bf16 operands, 2-D and
+    batched. The bound is twice what the tensor cores' f32 sums reach on
+    their own: one bf16 GEMM of exact operands at these shapes came within
+    2^-22.2 |a| @ |b| on an H100 (the CPU's IEEE sums are held to 2^-22 in
+    tests/test_torch_precision.py)."""
+    from leann_torch.device import matmul
+
+    rng = np.random.default_rng(5)
+    a = torch.from_numpy(rng.standard_normal((256, 384)).astype(np.float32)).to(cuda)
+    b = torch.from_numpy(rng.standard_normal((384, 1536)).astype(np.float32)).to(cuda)
+    cases = [(a, b), (a.to(torch.bfloat16), b), (a.to(torch.bfloat16), b.to(torch.bfloat16)),
+             (a.reshape(8, 32, 384), b[:, :256].reshape(384, 8, 32).permute(1, 0, 2))]
+    prev = (torch.get_float32_matmul_precision(), torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction)
+    try:
+        for x, y in cases:
+            outs = []
+            for precision in ("highest", "high", "medium"):
+                for reduced in (True, False):
+                    torch.set_float32_matmul_precision(precision)
+                    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = reduced
+                    outs.append(matmul(x, y))
+            assert all(torch.equal(outs[0], o) for o in outs[1:]), (tuple(x.shape), x.dtype, y.dtype)
+            ref = x.double() @ y.double()
+            bound = 2.0 ** -21 * (x.double().abs() @ y.double().abs())
+            assert bool(((outs[0].double() - ref).abs() <= bound).all()), (tuple(x.shape), x.dtype, y.dtype)
+    finally:
+        torch.set_float32_matmul_precision(prev[0])
+        torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = prev[1]
+
+
+@pytest.mark.parametrize("backend", ["diskann", "hnsw"])
+def test_search_identical_under_a_callers_high(cuda, tmp_path, backend):
+    """A search on the card gives the same labels and distances, bit for
+    bit, under a caller's "high" (TF32) and "highest": the port's products
+    do not read the flag."""
+    from leann_torch import LeannBuilder, LeannSearcher
+
+    rng = np.random.default_rng(11)
+    vocab = [f"w{i}" for i in range(300)]
+    texts = [f"doc{i} " + " ".join(rng.choice(vocab, 14)) for i in range(800)]
+    kw = {"diskann": dict(graph_degree=16, num_partitions=1), "hnsw": dict(M=8)}[backend]
+    b = LeannBuilder(backend_name=backend, embedding_model="hash-tiny", max_length=32, device="cuda", **kw)
+    for t in texts:
+        b.add_text(t)
+    prefix = str(tmp_path / "x.leann")
+    b.build_index(prefix)
+    queries = [" ".join(t.split()[:8]) for t in texts[:32]]
+    s = LeannSearcher(prefix, device="cuda")
+    prev = torch.get_float32_matmul_precision()
+    out = {}
+    try:
+        for precision in ("highest", "high", "highest"):
+            torch.set_float32_matmul_precision(precision)
+            res = s.search(queries, top_k=3, complexity=32, beam_width=4)
+            assert torch.get_float32_matmul_precision() == precision
+            out.setdefault(precision, []).append([[(r.id, r.score) for r in row] for row in res])
+    finally:
+        torch.set_float32_matmul_precision(prev)
+    assert out["highest"][0] == out["highest"][1] == out["high"][0]
+
+
+def test_train_step_on_the_card_matches_the_cpu(cuda):
+    """One ContrastiveTrainer step at all-MiniLM-L6-v2's widths (bert arch,
+    bf16 products) on the card against the same step on the CPU: losses
+    within 1e-3 and probe embeddings of the stepped encoders at cosine >=
+    0.999 (the gather's backward adds in atomic order on the card, so no
+    bit-equality is asked)."""
+    from dataclasses import replace
+
+    from leann_torch.embeddings import encoder as te
+    from leann_torch.parallel.train import ContrastiveTrainer
+
+    cfg = replace(te.MODEL_REGISTRY["hash-minilm"], name="minilm-l6-seeded", vocab_size=30522, n_heads=12,
+                  max_len=512, arch="bert")
+    tree = te.init_params(cfg)
+    rng = np.random.default_rng(3)
+    q = rng.integers(0, cfg.vocab_size, (32, 32)).astype(np.int32)
+    d = rng.integers(0, cfg.vocab_size, (32, 64)).astype(np.int32)
+    qm = (np.arange(32)[None, :] < rng.integers(4, 33, 32)[:, None]).astype(np.int32)
+    dm = (np.arange(64)[None, :] < rng.integers(8, 65, 32)[:, None]).astype(np.int32)
+    losses, probes = {}, {}
+    for dev in ("cuda", "cpu"):
+        tr = ContrastiveTrainer(cfg, learning_rate=1e-4, params=tree, device=dev)
+        losses[dev] = [tr.train_step(q, qm, d, dm) for _ in range(2)]
+        p = te.params_to_torch(tr.params, dev)
+        probes[dev] = te.encode_tokens(p, torch.from_numpy(q).to(dev), torch.from_numpy(qm).to(dev),
+                                       cfg).cpu().numpy().astype(np.float64)
+    np.testing.assert_allclose(losses["cuda"], losses["cpu"], rtol=0, atol=1e-3)
+    cos = (probes["cuda"] * probes["cpu"]).sum(1) / (
+        np.linalg.norm(probes["cuda"], axis=1) * np.linalg.norm(probes["cpu"], axis=1))
+    assert cos.min() >= 0.999
+
+
+def test_trainer_raises_without_cuda():
+    """ContrastiveTrainer's default device is cuda: without a card it raises
+    instead of running on the CPU."""
+    from leann_torch.embeddings.encoder import MODEL_REGISTRY
+    from leann_torch.parallel.train import ContrastiveTrainer
+
+    if torch.cuda.is_available():
+        pytest.skip("CUDA present: the default device is valid here")
+    with pytest.raises(RuntimeError, match="device="):
+        ContrastiveTrainer(MODEL_REGISTRY["hash-tiny"])

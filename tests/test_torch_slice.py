@@ -122,32 +122,6 @@ def test_default_device_raises_without_cuda(tmp_path):
             ctor()
 
 
-def test_search_runs_full_f32_and_leaves_the_callers_setting(indexes, monkeypatch):
-    """The search's products run in full f32 (no TF32), and neither the
-    searcher nor device resolution changes the caller's own matmul setting."""
-    import leann_torch
-    from leann_torch.backends import common as backend
-
-    seen = []
-    for name in ("beam_search_batch_packed", "beam_search_text_batch_packed"):
-        orig = getattr(backend, name)
-
-        def spy(*a, _orig=orig, **kw):
-            seen.append(torch.get_float32_matmul_precision())
-            return _orig(*a, **kw)
-
-        monkeypatch.setattr(backend, name, spy)
-    paths, queries, _ = indexes
-    prev = torch.get_float32_matmul_precision()
-    try:
-        torch.set_float32_matmul_precision("high")
-        leann_torch.LeannSearcher(paths["torch"], device="cpu").search(queries[:4], **KW)
-        assert seen == ["highest"]
-        assert torch.get_float32_matmul_precision() == "high"
-    finally:
-        torch.set_float32_matmul_precision(prev)
-
-
 def test_default_backend_is_hnsw(tmp_path):
     import json
 
@@ -185,7 +159,8 @@ def test_unported_backend_raises():
 
 def test_import_pulls_in_no_jax():
     code = ("import sys, leann_torch, leann_torch.backends.diskann, leann_torch.backends.flat, "
-            "leann_torch.backends.hnsw, leann_torch.repack, leann_torch.backends.diskann.partition; "
+            "leann_torch.backends.hnsw, leann_torch.repack, leann_torch.backends.diskann.partition, "
+            "leann_torch.parallel.train; "
             "bad = [m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'leann_tpu'))]; "
             "print(bad); sys.exit(1 if bad else 0)")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True, timeout=120)
