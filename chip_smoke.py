@@ -25,7 +25,8 @@ final line):
      of a 385-wide corpus whose last 1000 rows are padding at k = 64 (id
      overlap >= 0.98, no self match, no padding row; above k = 256 id
      overlap >= 0.99999 and max abs error <= 1e-5).
-     Phases 2-3 time each kernel and each library call as device time: the
+     Phases 2-3 time each kernel and each library call (phase 2: l2 at
+     k = 3 only, cosine at every k) as device time: the
      summed time of the CUDA kernels one call launches, from torch.profiler
      over 10 calls after 2 untimed ones (`kernel_ms`, `library_ms`); each
      kernel's records must number a multiple of the calls, else the profile
@@ -125,7 +126,35 @@ final line):
      each held against its plain version, recall@3 >= 0.80 against the
      trained oracle, and hit@3 of each query's source chunk before and after
      training (printed, not checked).
- 11. the kernels line: per kernel, path and k its launches on that path
+ 11. the user surface, with LEANN_HOME and the current directory in the
+     run's temporary directory: a document folder generated from the seed
+     (1,500 .md / .txt files of synth_corpus prose, one PDF whose text is a
+     Flate stream, 400 Python modules and 100 each of .ts, .go and .java
+     files; a .gitignore listing build/ and ignored/, which hold a marker
+     word each, as does a hidden .private/; ~47,000 chunks).
+     (a) leann_torch.cli.main(["build", "folder", "--docs", DIR,
+     "--use-ast-chunking"]) at every other default (hnsw, hash-minilm,
+     max_length 256, M = 32, efConstruction = 128, compact, recompute), then
+     the same with --backend flat into folder-oracle: one knn_panel launch
+     at k = 128 in the hnsw build, no marker word in any passage, the PDF's
+     text in one. (b) 64 queries (12-word prefixes of chunks) through
+     LeannSearcher at the CLI's search defaults (top_k 5, complexity 64,
+     beam_width 8): recall@5 against the oracle >= 0.80, ms per query warm.
+     (c) `search ... --non-interactive` for 4 queries prints the searcher's
+     top-5 texts in order; `ask ... --llm simulated` the top passages' head.
+     (d) `python -m leann_torch.mcp --device cuda` as a subprocess:
+     initialize, tools/list, two leann_search calls and leann_list, each
+     timed; the first search's top result equals the in-process top-1, the
+     list names both indexes. (e) a loopback fake Ollama (http.server in a
+     thread on 127.0.0.1:11434, the mode's default host; deterministic
+     384-wide vectors): `build folder-http --embedding-mode ollama
+     --backend flat` over the 200 .ts and .go files; its search launches
+     flat_topk and gives the labels and scores of flat_topk over the same
+     vectors computed directly. (f) `remove folder-http --force`; `list`
+     no longer names it. Both kernels are held against their plain
+     versions on this path's inputs (k-NN at k = 128, the oracle's and the
+     HTTP index's top-5).
+ 12. the kernels line: per kernel, path and k its launches on that path
      (each path's counts set to 0 just before it and read just after), its
      device time and call time, its plain version's and a library call's
      time at that path's shapes, and its bound on the card.
@@ -224,7 +253,8 @@ def _device_us(evt) -> float:
 # seconds of idle time before a profile's calls: grown when a profile loses
 # records, up to PROFILE_PAD_MAX_S, and kept for the next. Losses were seen
 # at pads of 4-32 s as well, and a pad that doubled to 64 s took a run past
-# its time limit, so the pad stops at 4 s.
+# its time limit, so the pad stops at 4 s (at 1 or 2 s, 10 or 6 of 84
+# profiles were given up in one run each, at 4 s none).
 _PROFILE_PAD = [0.0]
 PROFILE_PAD_MAX_S = 4.0
 _TIMED = "chip_smoke_timed_calls"
@@ -348,25 +378,27 @@ def phase_flat_topk(torch, dev, rng):
                 ok = ok and ov == 1.0 and (err if metric == "cosine" else rel) <= 1e-5
             ik2, dk2 = flat_topk(qm, e, en, n, k, metric)
             same = bool(torch.equal(ik, ik2) and torch.equal(dk, dk2))  # deterministic
-            qb = qm.to(torch.bfloat16)
-
-            def kernel():
-                return flat_topk(qm, e, en, n, k, metric)
-
-            (k_ms, k_parts, k_att), c_ms = device_ms(torch, kernel), cuda_ms(torch, kernel)
-            p_ms = cuda_ms(torch, lambda: flat_search(e, qm, n, k, metric, en=en), reps=3)
-            if metric == "l2":
-                lib = lambda: torch.topk(2.0 * (qb @ e.T).float() - en, k)  # noqa: E731
-            else:
-                lib = lambda: torch.topk(qb @ e.T, k)  # noqa: E731
-            l_ms, _, l_att = device_ms(torch, lib)
-            n_bytes = n * d * 2 + b * d * 4 + (n * 4 if metric == "l2" else 0) + b * k * 8
-            b_ms, b_by = bound(n_bytes, 2.0 * b * n * d)
             row = {"phase": "flat_topk", "metric": metric, "k": k, "shape": [b, n, d], "overlap": ov,
-                   "max_rel_err": rel, "max_abs_err": err, "deterministic": same, "kernel_ms": k_ms,
-                   "kernel_parts_ms": k_parts, "profile": k_att, "call_ms": c_ms, "plain_ms": p_ms, "library_ms": l_ms, "library_profile": l_att, "bound_ms": b_ms,
-                   "bound_by": b_by,
-                   "ok": bool(ok and same)}
+                   "max_rel_err": rel, "max_abs_err": err, "deterministic": same, "ok": bool(ok and same)}
+            # every (metric, k) is checked; l2 is timed at the oracle's k only (the
+            # profiles are the run's largest cost, and no record reads the others)
+            if metric == "cosine" or k == 3:
+                qb = qm.to(torch.bfloat16)
+
+                def kernel():
+                    return flat_topk(qm, e, en, n, k, metric)
+
+                (k_ms, k_parts, k_att), c_ms = device_ms(torch, kernel), cuda_ms(torch, kernel)
+                p_ms = cuda_ms(torch, lambda: flat_search(e, qm, n, k, metric, en=en), reps=3)
+                if metric == "l2":
+                    lib = lambda: torch.topk(2.0 * (qb @ e.T).float() - en, k)  # noqa: E731
+                else:
+                    lib = lambda: torch.topk(qb @ e.T, k)  # noqa: E731
+                l_ms, _, l_att = device_ms(torch, lib)
+                n_bytes = n * d * 2 + b * d * 4 + (n * 4 if metric == "l2" else 0) + b * k * 8
+                b_ms, b_by = bound(n_bytes, 2.0 * b * n * d)
+                row.update(kernel_ms=k_ms, kernel_parts_ms=k_parts, profile=k_att, call_ms=c_ms, plain_ms=p_ms,
+                           library_ms=l_ms, library_profile=l_att, bound_ms=b_ms, bound_by=b_by)
             emit(row)
             if not ok:
                 fail(f"flat_topk disagrees with its plain version: {row}")
@@ -987,8 +1019,8 @@ def _copy_index(src_prefix: str, dst_dir: str) -> str:
     return prefix
 
 
-def _recall(got, truth) -> float:
-    return float(np.mean([len({x.id for x in a} & {x.id for x in b}) / 3 for a, b in zip(got, truth)]))
+def _recall(got, truth, k: int = 3) -> float:
+    return float(np.mean([len({x.id for x in a} & {x.id for x in b}) / k for a, b in zip(got, truth)]))
 
 
 def panel_row(torch, kp, ebf, norms, k: int) -> dict:
@@ -1419,24 +1451,29 @@ def check_rows(kr) -> None:
             fail(f"{name} on {path} disagrees with its plain version: {r}")
 
 
-def oracle_row(torch, dev, oracle_searcher, queries) -> dict:
-    """flat_topk at k = 3 over a flat index's rows, with the oracle's query
-    vectors: checked against its plain version, and timed."""
+def oracle_row(torch, dev, oracle_searcher, queries, k: int = 3, q=None) -> dict:
+    """flat_topk at k over a flat index's rows, with the index's query
+    vectors (``q``, else the index's encoder on ``queries``): checked
+    against its plain version, and timed."""
     from leann_torch.ops.distance import flat_search, pad_features
     from leann_torch.ops.flat_topk import flat_topk
 
     be = oracle_searcher.backend
-    q = be.get_encoder().encode(queries)
-    q = pad_features(torch.from_numpy(q / np.linalg.norm(q, axis=1, keepdims=True)).to(dev))
+    metric = be.metric
+    if q is None:
+        q = be.get_encoder().encode(queries)
+    if metric == "cosine":
+        q = q / np.linalg.norm(q, axis=1, keepdims=True)
+    q = pad_features(torch.from_numpy(np.ascontiguousarray(q, np.float32)).to(dev))
     n_flat, d_pad = be.n, be._emb.shape[1]
-    ik, dk = flat_topk(q, be._emb, be._en, n_flat, 3, "cosine")
-    (ip, dp), p_ms = timed_once(torch, lambda: flat_search(be._emb, q, n_flat, 3, "cosine", en=be._en))
+    ik, dk = flat_topk(q, be._emb, be._en, n_flat, k, metric)
+    (ip, dp), p_ms = timed_once(torch, lambda: flat_search(be._emb, q, n_flat, k, metric, en=be._en))
     qb = q.to(torch.bfloat16)
-    return {"shape": [q.shape[0], n_flat, d_pad], "k": 3, "overlap": overlap(ik, ip),
+    return {"shape": [q.shape[0], n_flat, d_pad], "k": k, "metric": metric, "overlap": overlap(ik, ip),
             "max_abs_err": float((dk - dp).abs().max()),
-            **timed_row(torch, lambda: flat_topk(q, be._emb, be._en, n_flat, 3, "cosine"), p_ms,
-                        lambda: torch.topk(qb @ be._emb.T, 3), n_flat * d_pad * 2 + q.shape[0] * d_pad * 4
-                        + q.shape[0] * 3 * 8, 2.0 * q.shape[0] * n_flat * d_pad, reps=10)}
+            **timed_row(torch, lambda: flat_topk(q, be._emb, be._en, n_flat, k, metric), p_ms,
+                        lambda: torch.topk(qb @ be._emb.T, k), n_flat * d_pad * 2 + q.shape[0] * d_pad * 4
+                        + q.shape[0] * k * 8, 2.0 * q.shape[0] * n_flat * d_pad, reps=10)}
 
 # phase 10: benchmarks/train_encoder.py:65-67's batch and learning rate; its
 # 800 steps cut to 200 for the smoke's time
@@ -1591,6 +1628,474 @@ def phase_train(torch, dev, workdir: str, main: dict, ckpt_state: dict):
     return kr, launches
 
 
+# phase 11: a generated document folder (a user's notes and a mid-size code
+# repository) through the port's command line, MCP server and HTTP mode
+SURFACE_SIZES = dict(n_prose=1500, n_py=400, n_brace=100)
+# words that only ignored or hidden files hold: no passage may contain one
+SURFACE_MARKERS = {"build/": "zqbuildmarker", ".private/": "zqprivatemarker", "ignored/": "zqignoredmarker"}
+PDF_PHRASE = "zqpdfphrase quarterly planning memo"
+# the CLI's search defaults (leann_torch/cli.py: --top-k 5 --complexity 64 --beam-width 8)
+CLI_SEARCH_KW = dict(top_k=5, complexity=64, beam_width=8)
+
+
+def write_flate_pdf(path, lines) -> None:
+    """A one-page PDF whose text is one FlateDecode content stream of Tj
+    operators, the form the loaders' built-in reader parses."""
+    import zlib
+
+    ops = ["BT", "/F1 11 Tf", "72 760 Td"]
+    for ln in lines:
+        esc = ln.replace("\\", "\\\\").replace("(", "\\(").replace(")", "\\)")
+        ops += [f"({esc}) Tj", "0 -14 Td"]
+    ops.append("ET")
+    stream = zlib.compress("\n".join(ops).encode("latin-1"))
+    while stream.endswith((b"\r", b"\n")):  # the reader strips line ends before inflating
+        ops.append("")
+        stream = zlib.compress("\n".join(ops).encode("latin-1"))
+    objs = [b"<< /Type /Catalog /Pages 2 0 R >>", b"<< /Type /Pages /Kids [3 0 R] /Count 1 >>",
+            b"<< /Type /Page /Parent 2 0 R /MediaBox [0 0 612 792] "
+            b"/Resources << /Font << /F1 4 0 R >> >> /Contents 5 0 R >>",
+            b"<< /Type /Font /Subtype /Type1 /BaseFont /Helvetica >>",
+            b"<< /Length %d /Filter /FlateDecode >>\nstream\n" % len(stream) + stream + b"\nendstream"]
+    out = bytearray(b"%PDF-1.4\n")
+    offsets = []
+    for i, body in enumerate(objs, 1):
+        offsets.append(len(out))
+        out += b"%d 0 obj\n" % i + body + b"\nendobj\n"
+    xref = len(out)
+    out += b"xref\n0 %d\n0000000000 65535 f \n" % (len(objs) + 1)
+    out += b"".join(b"%010d 00000 n \n" % off for off in offsets)
+    out += b"trailer\n<< /Size %d /Root 1 0 R >>\nstartxref\n%d\n%%%%EOF\n" % (len(objs) + 1, xref)
+    with open(path, "wb") as f:
+        f.write(bytes(out))
+
+
+def _py_module(rng, words, i: int) -> str:
+    """A Python module: a docstring, imports, functions with docstrings and
+    bodies, and a class with methods."""
+    def w(n):
+        return " ".join(rng.choice(words, n))
+
+    def ident():
+        return "_".join(rng.choice(words, 2))
+
+    lines = [f'"""Module m{i}: {w(12)}."""', "", "import math", "import os", "",
+             f"LIMIT_{i} = {int(rng.integers(8, 512))}", ""]
+    for _ in range(int(rng.integers(10, 18))):
+        args = [ident() for _ in range(3)]
+        v = ident()
+        lines += [f"def {ident()}({', '.join(args)}):", f'    """{w(int(rng.integers(8, 20)))}."""',
+                  f"    {v} = {args[0]} * {int(rng.integers(2, 9))} + {args[1]}",
+                  f"    if {v} > LIMIT_{i}:", f"        # {w(6)}", f"        return math.sqrt({v}) - {args[2]}",
+                  f"    for _ in range({int(rng.integers(2, 6))}):", f"        {v} = {v} // 2 + len(os.sep)",
+                  f"    return {v}", "", ""]
+    lines += [f"class {ident().title().replace('_', '')}:", f'    """{w(16)}."""', "",
+              "    def __init__(self, size):", "        self.size = size", ""]
+    for _ in range(int(rng.integers(4, 10))):
+        lines += [f"    def {ident()}(self, value):", f'        """{w(10)}."""',
+                  f"        return self.size * value + {int(rng.integers(1, 99))}", ""]
+    return "\n".join(lines) + "\n"
+
+
+def _brace_file(rng, words, lang: str, i: int) -> str:
+    """A TypeScript, Go or Java file with balanced braces: functions or
+    methods with comments and string literals that hold braces."""
+    def w(n):
+        return " ".join(rng.choice(words, n))
+
+    def ident():
+        return "".join(x.title() for x in rng.choice(words, 2))
+
+    n_fn = int(rng.integers(12, 24))
+    if lang == "ts":
+        out = [f"// module t{i}: {w(10)}", f'import {{ {ident()} }} from "./{ident()}";', ""]
+        for _ in range(n_fn):
+            out += [f"export function f{ident()}(a: number, b: number): number {{", f"  // {w(8)}",
+                    f"  const x = a * {int(rng.integers(2, 9))} + b;", "  if (x > 10) {", "    return x - b;", "  }",
+                    f"  return `{w(3)} ${{x}} }}`.length;", "}", ""]
+        out += [f"export class C{ident()} {{", "  private v = 0;"]
+        out += [f"  m{ident()}(a: number): number {{ return this.v + a; /* {w(4)} */ }}" for _ in range(6)]
+        out += ["}", ""]
+    elif lang == "go":
+        out = [f"// Package p{i}: {w(10)}", f"package p{i}", "", 'import "fmt"', ""]
+        for _ in range(n_fn):
+            out += [f"func F{ident()}(a int, b int) int {{", f"\t// {w(8)}", f"\tx := a*{int(rng.integers(2, 9))} + b",
+                    "\tif x > 10 {", "\t\treturn x - b", "\t}", f'\tfmt.Println("{w(3)} {{")', "\treturn x", "}", ""]
+        out += [f"type S{ident()} struct {{", "\tV int", "}", ""]
+    else:
+        out = [f"package com.example.p{i};", "", f"/** {w(12)} */", f"public class C{i}{ident()} {{",
+               "    private int v = 0;", ""]
+        for _ in range(n_fn):
+            out += [f"    public int m{ident()}(int a, int b) {{", f"        // {w(8)}",
+                    f"        int x = a * {int(rng.integers(2, 9))} + b;", "        if (x > 10) {",
+                    "            return x - b;", "        }", f'        String s = "{w(3)} }}";',
+                    "        return x + s.length();", "    }", ""]
+        out += ["}", ""]
+    return "\n".join(out) + "\n"
+
+
+def make_document_folder(root: str, seed: int, n_prose: int, n_py: int, n_brace: int) -> dict:
+    """A folder a user would index, from ``seed``: ``notes/`` holds
+    ``n_prose`` .md / .txt files of prose (``synth_corpus`` sentences, ~125
+    a file, in paragraphs under headings) and one PDF; ``repo/`` holds
+    ``n_py`` Python modules and ``n_brace`` each of .ts, .go and .java
+    files. A ``.gitignore`` lists ``build/`` and ``ignored/``; those and a
+    hidden ``.private/`` hold one marker word each (``SURFACE_MARKERS``). ->
+    {"prose_files", "code_files", "sentences", "words"}."""
+    rng = np.random.default_rng(seed)
+    per_file = rng.integers(100, 151, size=n_prose)
+    sentences = synth_corpus(int(per_file.sum()), rng)
+    words = np.array(sorted({x for s in sentences[:2000] for x in s.split() if x.startswith("w")}))
+    notes = os.path.join(root, "notes")
+    at = 0
+    for i, n in enumerate(per_file.tolist()):
+        d = os.path.join(notes, f"topic{i % 32:02d}")
+        os.makedirs(d, exist_ok=True)
+        body, paras = sentences[at:at + n], []
+        at += n
+        for p in range(0, n, 6):
+            paras.append(" ".join(s + "." for s in body[p:p + 6]))
+        ext = ".md" if i % 2 == 0 else ".txt"
+        head = f"# Notes {i}: {' '.join(body[0].split()[:4])}\n\n" if ext == ".md" else ""
+        with open(os.path.join(d, f"note{i:04d}{ext}"), "w") as f:
+            f.write(head + "\n\n".join(paras) + "\n")
+    write_flate_pdf(os.path.join(notes, "memo.pdf"),
+                    [PDF_PHRASE] + [" ".join(rng.choice(words, 10)) + "." for _ in range(30)])
+    repo = os.path.join(root, "repo")
+    for sub, ext, n in (("src", ".py", n_py), ("web", ".ts", n_brace), ("svc", ".go", n_brace),
+                        ("java", ".java", n_brace)):
+        for i in range(n):
+            d = os.path.join(repo, sub, f"pkg{i % 16:02d}")
+            os.makedirs(d, exist_ok=True)
+            text = _py_module(rng, words, i) if ext == ".py" else _brace_file(rng, words, ext[1:], i)
+            with open(os.path.join(d, f"m{i:04d}{ext}"), "w") as f:
+                f.write(text)
+    with open(os.path.join(root, ".gitignore"), "w") as f:
+        f.write("build/\nignored/\n")
+    for d, marker in SURFACE_MARKERS.items():
+        os.makedirs(os.path.join(root, d), exist_ok=True)
+        with open(os.path.join(root, d, "notes.md"), "w") as f:
+            f.write(f"# {marker}\n\n{marker} {' '.join(rng.choice(words, 20))}.\n")
+    return {"prose_files": n_prose, "code_files": n_py + 3 * n_brace, "sentences": len(sentences),
+            "words": int(sum(len(s.split()) for s in sentences))}
+
+
+class FakeOllama:
+    """A loopback stand-in for an Ollama server (stdlib ``http.server`` in a
+    thread on 127.0.0.1): ``/api/version``, ``/api/tags`` naming ``MODEL``,
+    and ``/api/embeddings`` answering each prompt with ``vector(prompt)``, a
+    deterministic ``DIM``-wide vector seeded by the prompt's CRC-32."""
+
+    MODEL, DIM = "nomic-embed-text:latest", 384
+
+    def __init__(self, port: int = 0):
+        from http.server import BaseHTTPRequestHandler, HTTPServer
+
+        fake = self
+        self.calls = 0
+
+        class Handler(BaseHTTPRequestHandler):
+            def log_message(self, *a):
+                pass
+
+            def _json(self, code, obj):
+                body = json.dumps(obj).encode()
+                self.send_response(code)
+                self.send_header("Content-Type", "application/json")
+                self.send_header("Content-Length", str(len(body)))
+                self.end_headers()
+                self.wfile.write(body)
+
+            def do_GET(self):
+                if self.path == "/api/version":
+                    self._json(200, {"version": "0.0-fake"})
+                elif self.path == "/api/tags":
+                    self._json(200, {"models": [{"name": FakeOllama.MODEL}]})
+                else:
+                    self._json(404, {})
+
+            def do_POST(self):
+                req = json.loads(self.rfile.read(int(self.headers.get("Content-Length", 0))))
+                fake.calls += 1
+                self._json(200, {"embedding": FakeOllama.vector(req.get("prompt", ""))})
+
+        self.server = HTTPServer(("127.0.0.1", port), Handler)
+        self.host = f"http://127.0.0.1:{self.server.server_port}"
+        self.thread = threading.Thread(target=self.server.serve_forever, daemon=True)
+        self.thread.start()
+
+    @classmethod
+    def vector(cls, prompt: str) -> list:
+        import zlib
+
+        return np.random.default_rng(zlib.crc32(prompt.encode())).standard_normal(cls.DIM).tolist()
+
+    def close(self) -> None:
+        self.server.shutdown()
+        self.server.server_close()
+        self.thread.join(timeout=10)
+
+
+def _cli(args) -> "tuple[int, str]":
+    """``leann_torch.cli.main(args)`` in this process -> (exit code, stdout)."""
+    import contextlib
+    import io
+
+    from leann_torch import cli
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(args)
+    return rc, buf.getvalue()
+
+
+_RESULT_HEAD = re.compile(r"^\[(\d+)\] \(score (-?[0-9.]+)\) ", re.MULTILINE)
+
+
+def parse_search_output(out: str) -> list:
+    """The CLI's ``search --non-interactive`` lines -> [(score, text)]."""
+    heads = list(_RESULT_HEAD.finditer(out))
+    return [(float(m.group(2)), out[m.end():heads[j + 1].start() if j + 1 < len(heads) else len(out)].rstrip("\n"))
+            for j, m in enumerate(heads)]
+
+
+def _mcp_session(cwd: str, env: dict, requests: list, limit_s: float = 600) -> list:
+    """``python -m leann_torch.mcp --device cuda`` as a subprocess: each
+    request written to its stdin and its answer read before the next ->
+    [(answer, wall seconds)] for each request with an id (a notification
+    gets no answer). The server is closed (stdin) and waited for; one that
+    outlives ``limit_s`` in all is killed, and the session fails."""
+    err_path = os.path.join(cwd, "mcp.stderr")
+    with open(err_path, "w") as err:
+        proc = subprocess.Popen([sys.executable, "-m", "leann_torch.mcp", "--device", "cuda"], cwd=cwd, env=env,
+                                stdin=subprocess.PIPE, stdout=subprocess.PIPE, stderr=err, text=True)
+    watchdog = threading.Timer(limit_s, proc.kill)
+    watchdog.start()
+    out = []
+    try:
+        for req in requests:
+            t = time.time()
+            proc.stdin.write(json.dumps(req) + "\n")
+            proc.stdin.flush()
+            if "id" not in req:  # a notification: no answer
+                continue
+            line = proc.stdout.readline()
+            if not line:
+                with open(err_path) as f:
+                    fail(f"the MCP server gave no answer to {req['method']}: {f.read()[-2000:]}")
+            out.append((json.loads(line), time.time() - t))
+        proc.stdin.close()
+        proc.wait(timeout=60)
+    finally:
+        watchdog.cancel()
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait(timeout=30)
+    return out
+
+
+def phase_surface(torch, dev, workdir: str):
+    """Phase 11 -> (kernel rows by (kernel, path), launches by path)."""
+    from leann_torch import LeannSearcher, api
+    from leann_torch.ops import graph
+    from leann_torch.ops import knn_panel as kp
+    from leann_torch.ops.distance import pad_features
+    from leann_torch.ops.flat_topk import flat_topk
+
+    counters = (flat_topk, kp.knn_panel, kp.knn_panel_ext, kp.topk_merge)
+    launches, seen = {}, {}
+    root = os.path.join(workdir, "surface")
+    docs, project, home = (os.path.join(root, d) for d in ("docs", "project", "home"))
+    os.makedirs(project)
+    t = time.time()
+    folder = make_document_folder(docs, seed=11, **SURFACE_SIZES)
+    folder["generate_s"] = time.time() - t
+    prev_cwd, prev_home = os.getcwd(), os.environ.get("LEANN_HOME")
+    real_build, real_exact_knn = api.LeannBuilder.build_index, graph.exact_knn
+
+    def recording_build(self, index_path):  # the build's start and its builder; launches nothing itself
+        seen.setdefault("build_start", []).append(time.time())
+        seen.setdefault("builders", []).append(self)
+        return real_build(self, index_path)
+
+    def recording_exact_knn(emb, k, *a, **kw):  # the k-NN's operands; launches nothing itself
+        seen["emb"], seen["k"] = emb, k
+        return real_exact_knn(emb, k, *a, **kw)
+
+    def index_prefix(name):
+        return os.path.join(project, ".leann", "indexes", name, "documents.leann")
+
+    def passages_of(name):
+        with open(index_prefix(name) + ".passages.jsonl") as f:
+            return [json.loads(line)["text"] for line in f]
+
+    fake = None
+    os.chdir(project)
+    os.environ["LEANN_HOME"] = home
+    try:
+        # (a) the CLI's build at every other default, then a flat oracle over the same folder
+        api.LeannBuilder.build_index, graph.exact_knn = recording_build, recording_exact_knn
+        _reset(counters)
+        torch.cuda.synchronize()
+        t0 = time.time()
+        rc, out = _cli(["build", "folder", "--docs", docs, "--use-ast-chunking"])
+        torch.cuda.synchronize()
+        cli_build_s = time.time() - t0
+        if rc != 0:
+            fail(f"leann_torch.cli build folder exited {rc}: {out[-2000:]}")
+        launches["surface_build"] = _counts(counters)
+        rc, out = _cli(["build", "folder-oracle", "--docs", docs, "--use-ast-chunking", "--backend", "flat"])
+        if rc != 0:
+            fail(f"leann_torch.cli build folder-oracle exited {rc}: {out[-2000:]}")
+        passages = passages_of("folder")
+        leaked = {m: sum(m in p for p in passages) for m in SURFACE_MARKERS.values()}
+
+        # (b) 64 queries (12-word prefixes of chunks) at the CLI's search defaults, against the oracle
+        rng = np.random.default_rng(12)
+        # picked from the texts in sorted order: the walk's order of the
+        # folder's directories, and so the chunks' ids, is the file system's
+        by_text = sorted(passages)
+        queries = [" ".join(by_text[i].split()[:12]) for i in rng.choice(len(passages), 64, replace=False)]
+        oracle_searcher = LeannSearcher(index_prefix("folder-oracle"))
+        truth = oracle_searcher.search(queries, top_k=5)
+        searcher = LeannSearcher(index_prefix("folder"))
+        got, ms_q = _timed_search(torch, searcher, queries, **CLI_SEARCH_KW)
+        recall = _recall(got, truth, k=5)
+
+        # (c) the CLI's search and ask, each against the searcher's own results
+        cli_search = []
+        for q in queries[:4]:
+            want = searcher.search(q, **CLI_SEARCH_KW)
+            (rc, out), s = _timed(lambda: _cli(["search", "folder", q, "--non-interactive"]))
+            printed = parse_search_output(out)
+            cli_search.append({"rc": rc, "s": s, "results": len(printed),
+                               "texts_equal": [p[1] for p in printed] == [r.text.rstrip("\n") for r in want],
+                               "max_score_diff": max((abs(p[0] - r.score) for p, r in zip(printed, want)),
+                                                     default=None)})
+        context = "\n\n".join(r.text for r in searcher.search(queries[0], top_k=5, complexity=64))
+        (rc, out), ask_s = _timed(lambda: _cli(["ask", "folder", queries[0], "--llm", "simulated"]))
+        ask = {"rc": rc, "s": ask_s, "head_printed": context[:200].replace("\n", " ") in out}
+        torch.cuda.synchronize()
+        launches["surface"] = _counts(counters)
+
+        # (d) the MCP server as a subprocess: a fresh process, its CLI calls fresh processes too
+        env = dict(os.environ, LEANN_HOME=home, PYTHONPATH=str(REPO))
+        top1 = searcher.search(queries[1], **CLI_SEARCH_KW)[0].text
+        calls = _mcp_session(project, env, [
+            {"jsonrpc": "2.0", "id": 1, "method": "initialize", "params": {}},
+            {"jsonrpc": "2.0", "method": "notifications/initialized"},
+            {"jsonrpc": "2.0", "id": 2, "method": "tools/list"},
+            *({"jsonrpc": "2.0", "id": 3 + j, "method": "tools/call",
+               "params": {"name": "leann_search", "arguments": {"index_name": "folder", "query": queries[1 + j]}}}
+              for j in range(2)),
+            {"jsonrpc": "2.0", "id": 5, "method": "tools/call", "params": {"name": "leann_list", "arguments": {}}},
+        ])
+        texts = [c[0].get("result", {}).get("content", [{}])[0].get("text", "") for c in calls]
+        mcp_first = parse_search_output(texts[2])
+        mcp = {"server": calls[0][0].get("result", {}).get("serverInfo", {}).get("name"),
+               "tools": sorted(t["name"] for t in calls[1][0].get("result", {}).get("tools", [])),
+               "call_s": {name: c[1] for name, c in zip(("initialize", "tools/list", "leann_search_1",
+                                                         "leann_search_2", "leann_list"), calls)},
+               "top1_equal": bool(mcp_first) and mcp_first[0][1] == top1.rstrip("\n"),
+               "second_results": len(parse_search_output(texts[3])),
+               "list_names": [n for n in ("folder", "folder-oracle") if f"{n} " in texts[4]]}
+
+        # (e) the ollama mode against a loopback fake on the mode's default host
+        fake = FakeOllama(port=11434)
+        http_docs = [os.path.join(docs, "repo", "web"), os.path.join(docs, "repo", "svc")]
+        _reset(counters)
+        (rc, out), http_build_s = _timed(lambda: _cli(["build", "folder-http", "--docs", *http_docs,
+                                                       "--embedding-mode", "ollama",
+                                                       "--embedding-model", "nomic-embed-text",
+                                                       "--backend", "flat"]))
+        if rc != 0:
+            fail(f"leann_torch.cli build folder-http exited {rc}: {out[-2000:]}")
+        http_passages = passages_of("folder-http")
+        by_text = sorted(http_passages)
+        hq = [" ".join(by_text[i].split()[:12]) for i in rng.choice(len(http_passages), 64, replace=False)]
+        http_searcher = LeannSearcher(index_prefix("folder-http"))
+        http_got, http_ms_q = _timed_search(torch, http_searcher, hq, top_k=5)
+        torch.cuda.synchronize()
+        launches["http"] = _counts(counters)
+        http_calls = fake.calls
+
+        def direct(texts):  # the fake's vectors, normalized as the ollama mode does
+            e = np.asarray([FakeOllama.vector(t[:8000]) for t in texts], dtype=np.float32)
+            return e / np.maximum(np.linalg.norm(e, axis=1, keepdims=True), 1e-12)
+
+        e, hqv = direct(http_passages), direct(hq)
+        ebf = pad_features(torch.from_numpy(e).to(dev).to(torch.bfloat16)).contiguous()
+        en = torch.from_numpy(e).to(dev).square().sum(dim=1).contiguous()
+        d_ids, d_dists = flat_topk(pad_features(torch.from_numpy(hqv).to(dev)), ebf, en, len(e), 5, "mips")
+        h_labels, h_scores = _labels_scores(http_got)
+        http = {"files": sum(len(fs) for d in http_docs for _, _, fs in os.walk(d)), "chunks": len(http_passages),
+                "build_s": http_build_s, "phase_seconds": dict(seen["builders"][2].phase_seconds),
+                "embedding_requests": http_calls, "ms_per_query": http_ms_q,
+                "metric": http_searcher.distance_metric,
+                "labels_equal": h_labels == [[str(i) for i in row] for row in d_ids.cpu().tolist()],
+                "scores_equal": bool(np.array_equal(h_scores, d_dists.cpu().numpy()))}
+        fake.close()
+        fake = None
+
+        # (f) remove the HTTP-mode index; list no longer names it
+        rc_rm, _ = _cli(["remove", "folder-http", "--force"])
+        rc_ls, listed = _cli(["list"])
+        removed = rc_rm == 0 and rc_ls == 0 and "folder-http" not in listed and "folder " in listed
+    finally:
+        api.LeannBuilder.build_index, graph.exact_knn = real_build, real_exact_knn
+        if fake is not None:
+            fake.close()
+        os.chdir(prev_cwd)
+        if prev_home is None:
+            os.environ.pop("LEANN_HOME", None)
+        else:
+            os.environ["LEANN_HOME"] = prev_home
+
+    # each kernel at this path's shapes, on its inputs
+    kr = {}
+    ebf_k, norms = kp.upload_panel_inputs(seen["emb"], dev)
+    kr[("knn_panel", "surface")] = panel_row(torch, kp, ebf_k, norms, seen["k"])
+    del ebf_k, norms
+    torch.cuda.empty_cache()
+    kr[("flat_topk", "surface")] = oracle_row(torch, dev, oracle_searcher, queries, k=5)
+    kr[("flat_topk", "http")] = oracle_row(torch, dev, http_searcher, hq, k=5, q=hqv)
+
+    hnsw_builder, oracle_builder = seen["builders"][:2]
+    row = {"phase": "surface", "folder": folder, "chunks": len(passages), "load_chunk_s":
+           seen["build_start"][0] - t0, "cli_build_s": cli_build_s, "build_s": dict(hnsw_builder.phase_seconds),
+           "oracle_build_s": dict(oracle_builder.phase_seconds), "knn_k": seen["k"],
+           "markers_in_passages": leaked, "pdf_passages": sum(PDF_PHRASE in p for p in passages),
+           "same_passages_as_oracle": passages == passages_of("folder-oracle"),
+           "recall_at_5": recall, "search_ms_per_query": ms_q, "search_kw": CLI_SEARCH_KW,
+           "cli_search": cli_search, "ask": ask, "mcp": mcp, "http": http, "removed_and_unlisted": removed,
+           "launches": launches,
+           "kernels": {f"{name}@{path}": {key: v for key, v in r.items() if key != "kernel_parts_ms"}
+                       for (name, path), r in kr.items()}}
+    emit(row)
+    if launches["surface_build"]["knn_panel"] != 1 or seen["k"] != 128:
+        fail(f"the CLI's hnsw build did not launch knn_panel once at k = 128: {launches}, k {seen.get('k')}")
+    if launches["surface"]["flat_topk"] < 1 or launches["http"]["flat_topk"] < 1:
+        fail(f"flat_topk was not launched on the oracle's or the HTTP index's searches: {launches}")
+    if any(leaked.values()) or not row["pdf_passages"] or not row["same_passages_as_oracle"]:
+        fail(f"the folder's passages: markers {leaked}, PDF passages {row['pdf_passages']}, "
+             f"the oracle's the same {row['same_passages_as_oracle']}")
+    if recall < 0.80:
+        fail(f"surface recall@5 {recall:.4f} below the 0.80 sanity floor")
+    if not all(c["rc"] == 0 and c["results"] == 5 and c["texts_equal"] and c["max_score_diff"] < 1e-3
+               for c in cli_search) or not (ask["rc"] == 0 and ask["head_printed"]):
+        fail(f"the CLI's search or ask disagrees with the searcher: {cli_search}, {ask}")
+    if not (mcp["server"] == "leann-torch-mcp" and mcp["tools"] == ["leann_list", "leann_search"]
+            and mcp["top1_equal"] and mcp["second_results"] == 5
+            and mcp["list_names"] == ["folder", "folder-oracle"]):
+        fail(f"the MCP session: {mcp}")
+    if not (http["labels_equal"] and http["scores_equal"]):
+        fail(f"the ollama-mode index disagrees with a flat search over the same vectors: {http}")
+    if not removed:
+        fail(f"remove folder-http or list: {listed[-2000:]}")
+    check_rows(kr)
+    return kr, launches
+
+
 def _timed(fn):
     """-> (``fn()``, its wall seconds on the host's clock)."""
     t = time.time()
@@ -1648,6 +2153,7 @@ def main() -> int:
         more.append(tuple(ckpt_rows))
         phase_repair(torch, main_state)
         more.append(phase_train(torch, dev, workdir, main_state, ckpt_state))
+        more.append(phase_surface(torch, dev, workdir))
     for kr, more_launches in more:
         launches.update(more_launches)
         rows += [(name, path, r, b1 if name == "flat_topk" else b2) for (name, path), r in kr.items()]

@@ -660,3 +660,46 @@ class LeannSearcher:
     def __exit__(self, *exc):
         self.cleanup()
         return False
+
+
+class LeannChat:
+    """RAG chat loop (reference api.py:826-930): the searcher's top passages
+    as the context of one prompt to the LLM. The searcher and an ``hf``
+    model run on ``device`` (default ``"cuda"``, raising without CUDA)."""
+
+    PROMPT_TEMPLATE = (
+        "You are a helpful assistant. Use the following retrieved context to answer the question.\n\n"
+        "Context:\n{context}\n\nQuestion: {question}\n\nAnswer:"
+    )
+
+    def __init__(self, index_path: str, llm_config: Optional[Dict[str, Any]] = None,
+                 searcher: Optional[LeannSearcher] = None, system_prompt: Optional[str] = None,
+                 device: str = "cuda", **searcher_kwargs):
+        from .chat import get_llm
+
+        self.device = resolve_device(device)
+        self.searcher = searcher or LeannSearcher(index_path, device=self.device, **searcher_kwargs)
+        self._owns_searcher = searcher is None
+        self.llm = get_llm(llm_config or {"type": "simulated"}, device=self.device)
+        self.system_prompt = system_prompt
+
+    def ask(self, question: str, top_k: int = 5, llm_kwargs: Optional[Dict[str, Any]] = None, **search_kwargs) -> str:
+        results = self.searcher.search(question, top_k=top_k, **search_kwargs)
+        context = "\n\n".join(r.text for r in results)
+        prompt = self.PROMPT_TEMPLATE.format(context=context, question=question)
+        return self.llm.ask(prompt, system=self.system_prompt, **(llm_kwargs or {}))
+
+    def start_interactive(self) -> None:  # pragma: no cover - REPL
+        print("LEANN chat. Type 'quit' to exit.")
+        while True:
+            try:
+                q = input("You: ").strip()
+            except (EOFError, KeyboardInterrupt):
+                break
+            if q.lower() in ("quit", "exit", ""):
+                break
+            print("Assistant:", self.ask(q))
+
+    def cleanup(self) -> None:
+        if self._owns_searcher:
+            self.searcher.cleanup()

@@ -68,7 +68,7 @@ class DiskannBuilder(LeannBackendBuilderInterface):
         **kwargs,
     ):
         if build_sharded:
-            raise not_ported("the mesh-sharded build", "ROADMAP.md, left for later #10")
+            raise not_ported("the mesh-sharded build", "ROADMAP.md §A #5, parallel/* across cards")
         self.device = resolve_device(device)
         self.distance_metric = distance_metric
         self.is_recompute = is_recompute
@@ -209,7 +209,7 @@ class DiskannSearcher(GraphSearcher, LeannBackendSearcherInterface):
         ``HOST_TOKEN_SHARE`` of the card's free memory."""
         super().__init__(index_path, **kwargs)
         if sharded is True:
-            raise not_ported("the sharded searcher", "ROADMAP.md, left for later #10")
+            raise not_ported("the sharded searcher", "ROADMAP.md §A #5, parallel/* across cards")
         if token_residency not in ("host", "device", "auto"):
             raise ValueError(f"unknown token_residency {token_residency!r}")
         host = token_residency == "host"

@@ -73,7 +73,7 @@ class HnswBuilder(LeannBackendBuilderInterface):
         **kwargs,
     ):
         if build_sharded:
-            raise not_ported("the mesh-sharded build", "ROADMAP.md, left for later #10")
+            raise not_ported("the mesh-sharded build", "ROADMAP.md §A #5, parallel/* across cards")
         self.device = resolve_device(device)
         self.distance_metric = distance_metric
         self.is_compact = is_compact
@@ -153,7 +153,7 @@ class HnswSearcher(GraphSearcher, LeannBackendSearcherInterface):
     def __init__(self, index_path: str, sharded: "bool | str" = False, **kwargs):
         super().__init__(index_path, **kwargs)
         if sharded is True:
-            raise not_ported("the sharded searcher", "ROADMAP.md, left for later #10")
+            raise not_ported("the sharded searcher", "ROADMAP.md §A #5, parallel/* across cards")
         z = np.load(f"{index_path}.hnsw.npz", allow_pickle=False)
         self.is_compact = bool(z["is_compact"])
         self.has_pq = "codes" in z

@@ -469,3 +469,35 @@ def test_trainer_raises_without_cuda():
         pytest.skip("CUDA present: the default device is valid here")
     with pytest.raises(RuntimeError, match="device="):
         ContrastiveTrainer(MODEL_REGISTRY["hash-tiny"])
+
+
+def test_cli_runs_on_the_card_by_default(cuda, tmp_path, monkeypatch, capsys):
+    """The port's CLI at its default device: `build` then `search` on the
+    card print the card searcher's top-5 texts in order, and `ask` the
+    simulated LLM's answer over them; the same index searched with --device
+    cpu finds mostly the same passages."""
+    from leann_torch import LeannSearcher, cli
+
+    monkeypatch.setenv("LEANN_HOME", str(tmp_path / "home"))
+    monkeypatch.chdir(tmp_path)
+    rng = np.random.default_rng(5)
+    words = [f"w{i}" for i in range(300)]
+    (tmp_path / "docs").mkdir()
+    for f in range(20):
+        sents = [" ".join(rng.choice(words, 12)) + "." for _ in range(12)]
+        (tmp_path / "docs" / f"n{f}.txt").write_text("\n\n".join(sents) + "\n")
+    tiny = ["--embedding-model", "hash-tiny", "--max-length", "64", "-M", "8", "--complexity", "16",
+            "--doc-chunk-size", "24", "--doc-chunk-overlap", "0"]
+    assert cli.main(["build", "demo", "--docs", "docs", *tiny]) == 0
+    prefix = cli.find_index("demo")
+    q = " ".join((tmp_path / "docs" / "n3.txt").read_text().split()[:8])
+    capsys.readouterr()
+    assert cli.main(["search", "demo", q, "--non-interactive"]) == 0
+    out = capsys.readouterr().out
+    want = LeannSearcher(prefix).search(q, top_k=5, complexity=64, beam_width=8)
+    pos = [out.index(f"] (score {r.score:.4f}) {r.text}") for r in want]
+    assert len(want) == 5 and pos == sorted(pos)
+    assert cli.main(["ask", "demo", q, "--llm", "simulated"]) == 0
+    assert capsys.readouterr().out.startswith("[simulated] Based on the retrieved context: ")
+    on_cpu = LeannSearcher(prefix, device="cpu").search(q, top_k=5, complexity=64, beam_width=8)
+    assert len({r.id for r in on_cpu} & {r.id for r in want}) >= 4

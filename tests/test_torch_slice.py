@@ -149,7 +149,7 @@ def test_unported_backend_raises():
     with pytest.raises(FileNotFoundError):
         hnsw.insert("no-such-index.leann", np.zeros((1, 8), np.float32), device="cpu")
     for backend in ("hnsw", "diskann"):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md, left for later #10"):
+        with pytest.raises(NotImplementedError, match="ROADMAP.md §A #5, parallel"):
             get_backend(backend).builder(build_sharded=True, device="cpu")
     # LDG partitioning is ported: the builder takes a partition count
     assert get_backend("diskann").builder(num_partitions=4, device="cpu").num_partitions == 4
@@ -160,7 +160,8 @@ def test_unported_backend_raises():
 def test_import_pulls_in_no_jax():
     code = ("import sys, leann_torch, leann_torch.backends.diskann, leann_torch.backends.flat, "
             "leann_torch.backends.hnsw, leann_torch.repack, leann_torch.backends.diskann.partition, "
-            "leann_torch.parallel.train; "
+            "leann_torch.parallel.train, leann_torch.cli, leann_torch.mcp, leann_torch.chat, leann_torch.chunking, "
+            "leann_torch.loaders; "
             "bad = [m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'leann_tpu'))]; "
             "print(bad); sys.exit(1 if bad else 0)")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True, timeout=120)
