@@ -25,8 +25,9 @@ final line):
      of a 385-wide corpus whose last 1000 rows are padding at k = 64 (id
      overlap >= 0.98, no self match, no padding row; above k = 256 id
      overlap >= 0.99999 and max abs error <= 1e-5).
-     Phases 2-3 time each kernel and each library call (phase 2: l2 at
-     k = 3 only, cosine at every k) as device time: the
+     Phases 2-3 check every case and time the kernel and a library call
+     at some (phase 2: cosine at k = 3, 5, 128, 512, l2 at k = 3; phase 3:
+     the full-corpus launches at k = 64, 128, 512) as device time: the
      summed time of the CUDA kernels one call launches, from torch.profiler
      over 10 calls after 2 untimed ones (`kernel_ms`, `library_ms`); each
      kernel's records must number a multiple of the calls, else the profile
@@ -109,14 +110,17 @@ final line):
      search's labels (a differing label is printed with its score gap, and
      only gaps under 1e-5 pass), the native hash tokenizer gives the Python
      path's ids on all 100,000 chunks and the native passage store the
-     offset map's texts on 10,000 lookups (both paths timed), and both
-     kernels agree with their plain versions on this path's inputs.
+     offset map's texts on 10,000 lookups (both paths timed), the
+     WordPiece read from a tokenizer.json of the same vocab (as
+     BertTokenizerFast saves it) gives the vocab.txt route's ids on all
+     chunks (both routes timed), and both kernels agree with their plain
+     versions on this path's inputs.
  10. fine-tuning, then an index from the trained checkpoint: first the
      searches' independence of the caller's precision flag (phase 4's
      diskann and phase 5's hnsw searches under "highest", then under "high",
      which allows TF32: identical labels and scores; "high" read back after
      a BatchedSearcher batch); then ContrastiveTrainer on phase 9's
-     checkpoint, 200 steps of 256 (12-word prefix -> chunk) pairs at lr 1e-4
+     checkpoint, 100 steps of 256 (12-word prefix -> chunk) pairs at lr 1e-4
      (queries T = 32, chunks T = 128, through the checkpoint's WordPiece;
      the 64 eval chunks left out): the loss at the first and last step (it
      must fall), warm ms per step, tokens per second, peak memory, one
@@ -154,7 +158,34 @@ final line):
      no longer names it. Both kernels are held against their plain
      versions on this path's inputs (k-NN at k = 128, the oracle's and the
      HTTP index's top-5).
- 12. the kernels line: per kernel, path and k its launches on that path
+ 12. checkpoints whose tokenizer is not WordPiece, read by the port's own
+     tokenizer.json reader. (a) a checkpoint directory at the widths of
+     intfloat/multilingual-e5-small's published config.json (BertModel,
+     vocab 250,037, hidden 384, 12 layers, 12 heads, MLP 1,536, 512
+     positions, type vocab 2; seeded weights written by the port's
+     save_hf_weights) with an XLM-R tokenizer.json the script writes (a
+     Unigram of 250,037 pieces, the corpus's pieces at ids 65,536 and up;
+     in the published order a Precompiled charsmap of nmt_nfkc-style rules
+     then Replace(" {2,}", " "); Metaspace "▁"; the template "<s> $A
+     </s>"): phase 4's 100,000 chunks and 64 queries through
+     indexes_from_dir (diskann at phase 4's settings and a flat oracle, both
+     calibrating). Fails unless the checkpoint loaded with that tokenizer,
+     the token store is int32 and holds ids above 65,535, no corpus token is
+     <unk>, the diskann build launched the k-NN panel kernel once at k = 64
+     and the oracle flat_topk once at k = 3, each agreeing with its plain
+     version on this path's inputs, recall@3 >= 0.80, and the normalizer
+     maps "Ａ ﬁ e\u0301" to "A fi é". Prints the tokenizer's seconds on the
+     100,000 chunks (a fresh reader) and on 10,000 non-ASCII texts (chunks'
+     words between accented, decomposed, CJK, Arabic, Devanagari, Cyrillic,
+     Hangul, emoji and fullwidth fragments; another fresh reader), the
+     build's phase seconds and ms per query. (b) the same at
+     sentence-transformers/all-distilroberta-v1's widths (RoBERTa, vocab
+     50,265, hidden 768, 6 layers, 12 heads, MLP 3,072, 514 positions, pad
+     id 1; the weights under the roberta. prefix beside an lm_head, as a
+     RobertaForMaskedLM saves them) with a byte-level BPE tokenizer.json and
+     RobertaProcessing, over the first 20,000 chunks and 64 queries from
+     them: the same checks, with a uint16 token store.
+ 13. the kernels line: per kernel, path and k its launches on that path
      (each path's counts set to 0 just before it and read just after), its
      device time and call time, its plain version's and a library call's
      time at that path's shapes, and its bound on the card.
@@ -163,6 +194,8 @@ copy of it also times an older tree of the repo the same way.
 The last line is {"ok": true, "device": {...}}.
 """
 
+import base64
+import collections
 import json
 import os
 import re
@@ -184,8 +217,12 @@ PEAK_BF16_FLOP_S = 989e12
 SEARCH_KW = dict(top_k=3, complexity=128, beam_width=4)
 
 
+_T0 = time.time()
+
+
 def emit(obj) -> None:
-    print(json.dumps(obj), flush=True)
+    """One JSON line; a phase's line also carries the run's seconds so far."""
+    print(json.dumps({**obj, "run_s": time.time() - _T0} if "phase" in obj else obj), flush=True)
 
 
 def fail(msg: str) -> None:
@@ -261,68 +298,90 @@ _TIMED = "chip_smoke_timed_calls"
 PROFILE_UNTIMED_CALLS = 2
 
 
-def device_ms(torch, fn, reps: int = 10, attempts: int = 5):
-    """Summed device time of the CUDA kernels ``fn`` launches, per call, and
-    the same by kernel name: torch.profiler over ``reps`` calls -> (ms, ms
-    by kernel, {attempts, pad_s, source}). Inside the profile
-    ``PROFILE_UNTIMED_CALLS`` untimed calls come first, then the ``reps``
-    timed ones in a marked range; only the kernels that start inside the
-    range are summed. Every
+def device_ms_many(torch, fns, attempts: int = 5):
+    """Summed device time of the CUDA kernels each function launches, per
+    call, and the same by kernel name, for ``fns`` = [(fn, reps), ...] in
+    one torch.profiler window -> [(ms, ms by kernel, {attempts, pad_s,
+    source})]. In the window, after the idle pad, each function in turn
+    makes ``PROFILE_UNTIMED_CALLS`` untimed calls, then its ``reps`` timed
+    ones in a marked range of its own; only the kernels that start inside a
+    function's range are summed for it. (One window for a kernel and its
+    library call halves the pads, the smoke's largest cost.) Every
     call launches the same kernels, so each kernel's count of records there
     must be a multiple of ``reps``. The profiler can lose the records of the
     first kernels of a profile, more often late in a long process (every
     loss seen was at the start of the window, and some profiles came back
     empty): the untimed calls take such a loss. A profile that lost records
     is printed, with the offsets of its kernels from the host events around
-    them, and taken again after twice the idle time before its calls (at
-    most ``PROFILE_PAD_MAX_S``). No incomplete profile is used: after
-    ``attempts`` the time is the call's wall time between CUDA events
-    (:func:`cuda_ms`, host work in the call included), and the source says
-    so ("cuda events"); every row and the kernels line carry the source of
-    both the kernel's and the library call's time."""
+    them, and the window is taken again after twice the idle time before its
+    calls (at most ``PROFILE_PAD_MAX_S``) for the functions still without
+    one. No incomplete profile is used: after ``attempts`` a function's
+    time is its call's wall time between CUDA events (:func:`cuda_ms`, host
+    work in the call included), and the source says so ("cuda events");
+    every row and the kernels line carry the source of both the kernel's
+    and the library call's time."""
     from torch.profiler import ProfilerActivity, profile, record_function
 
+    out: list = [None] * len(fns)
     for attempt in range(1, attempts + 1):
+        todo = [i for i, o in enumerate(out) if o is None]
+        if not todo:
+            break
         pad = _PROFILE_PAD[0]
-        fn()
+        for i in todo:
+            fns[i][0]()
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA], acc_events=True) as prof:
             time.sleep(pad)
-            for _ in range(PROFILE_UNTIMED_CALLS):
-                fn()
-            torch.cuda.synchronize()
-            time.sleep(0.01)  # the untimed calls' kernels end well before the range
-            with record_function(_TIMED):
-                for _ in range(reps):
+            for i in todo:
+                fn, reps = fns[i]
+                for _ in range(PROFILE_UNTIMED_CALLS):
                     fn()
                 torch.cuda.synchronize()
+                time.sleep(0.01)  # the untimed calls' kernels end well before the range
+                with record_function(f"{_TIMED}_{i}"):
+                    for _ in range(reps):
+                        fn()
+                    torch.cuda.synchronize()
+                time.sleep(0.01)  # and the next function's begin well after it
         evts = prof.events()
-        # the range is kept on the host and, as an annotation, on the device
-        marks = [e.time_range for e in evts if e.name == _TIMED and str(e.device_type).endswith("CPU")]
-        cut = marks[0].start - 5e3 if marks else float("inf")  # us: half the gap after the untimed calls
-        timed = [e for e in evts if str(e.device_type).endswith("CUDA") and e.name != _TIMED
-                 and e.time_range.start >= cut]
-        by_kernel, counts = {}, {}
-        for e in timed:
-            if _device_us(e) > 0:
-                by_kernel[e.name] = by_kernel.get(e.name, 0.0) + _device_us(e) / 1e3 / reps
-                counts[e.name[:60]] = counts.get(e.name[:60], 0) + 1
-        if by_kernel and all(c % reps == 0 for c in counts.values()):
-            parts = {}  # names shortened for printing only; kernels that share a prefix add up
-            for key, ms in by_kernel.items():
-                parts[key[:60]] = parts.get(key[:60], 0.0) + ms
-            return sum(by_kernel.values()), parts, {"attempts": attempt, "pad_s": pad, "source": "torch.profiler"}
-        launches = [e.time_range for e in evts if "LaunchKernel" in e.name and e.time_range.start >= cut]
-        syncs = [e.time_range for e in evts if "Synchronize" in e.name]
-        kernels = [e.time_range for e in timed]
-        emit({"phase": "profiler_lost_records", "attempt": attempt, "pad_s": pad, "reps": reps, "records": counts,
-              "marked": bool(marks), "launch_records": len(launches),
-              "first_kernel_after_first_launch_ms": (min(k.start for k in kernels) - launches[0].start) / 1e3
-              if kernels and launches else None,
-              "last_kernel_end_after_sync_end_ms": (max(k.end for k in kernels) - syncs[-1].end) / 1e3
-              if kernels and syncs else None})
-        _PROFILE_PAD[0] = min(PROFILE_PAD_MAX_S, max(0.5, 2 * pad))
-    emit({"phase": "profiler_gave_up", "attempts": attempts, "reps": reps, "records": counts})
+        cuda = [e for e in evts if str(e.device_type).endswith("CUDA") and not e.name.startswith(_TIMED)]
+        for i in todo:
+            reps = fns[i][1]
+            # the range is kept on the host and, as an annotation, on the device
+            marks = [e.time_range for e in evts if e.name == f"{_TIMED}_{i}" and str(e.device_type).endswith("CPU")]
+            # us: half the gaps around the range (device and host clocks differ by up to ~0.5 ms)
+            lo, hi = (marks[0].start - 5e3, marks[0].end + 5e3) if marks else (float("inf"), float("inf"))
+            timed = [e for e in cuda if lo <= e.time_range.start <= hi]
+            by_kernel, counts = {}, {}
+            for e in timed:
+                if _device_us(e) > 0:
+                    by_kernel[e.name] = by_kernel.get(e.name, 0.0) + _device_us(e) / 1e3 / reps
+                    counts[e.name[:60]] = counts.get(e.name[:60], 0) + 1
+            if by_kernel and all(c % reps == 0 for c in counts.values()):
+                parts = {}  # names shortened for printing only; kernels that share a prefix add up
+                for key, ms in by_kernel.items():
+                    parts[key[:60]] = parts.get(key[:60], 0.0) + ms
+                out[i] = (sum(by_kernel.values()), parts,
+                          {"attempts": attempt, "pad_s": pad, "source": "torch.profiler", "window_fns": len(todo)})
+                continue
+            launches = [e.time_range for e in evts if "LaunchKernel" in e.name and lo <= e.time_range.start <= hi]
+            syncs = [e.time_range for e in evts if "Synchronize" in e.name]
+            kernels = [e.time_range for e in timed]
+            emit({"phase": "profiler_lost_records", "attempt": attempt, "pad_s": pad, "fn": i, "reps": reps,
+                  "records": counts, "marked": bool(marks), "launch_records": len(launches),
+                  "first_kernel_after_first_launch_ms": (min(k.start for k in kernels) - launches[0].start) / 1e3
+                  if kernels and launches else None,
+                  "last_kernel_end_after_sync_end_ms": (max(k.end for k in kernels) - syncs[-1].end) / 1e3
+                  if kernels and syncs else None})
+        if any(out[i] is None for i in todo):
+            _PROFILE_PAD[0] = min(PROFILE_PAD_MAX_S, max(0.5, 2 * pad))
+    return [o if o is not None else _gave_up(torch, fn, reps, attempts, _PROFILE_PAD[0])
+            for (fn, reps), o in zip(fns, out)]
+
+
+def _gave_up(torch, fn, reps: int, attempts: int, pad: float):
+    emit({"phase": "profiler_gave_up", "attempts": attempts, "reps": reps})
     return cuda_ms(torch, fn, reps), {}, {"attempts": attempts, "pad_s": pad, "source": "cuda events"}
 
 
@@ -347,8 +406,23 @@ def bound(n_bytes: float, flops: float):
 
 
 def overlap(a, b) -> float:
-    a, b = a.cpu().numpy().tolist(), b.cpu().numpy().tolist()
-    return float(np.mean([len(set(x) & set(y)) / len(x) for x, y in zip(a, b)]))
+    """Mean over rows of |set(a_row) & set(b_row)| / len(a_row), on a's
+    device: each distinct id of b's row looked up in a's sorted row (as
+    Python sets, a million rows of 64 took many seconds)."""
+    import torch
+
+    a = torch.sort(a.long(), dim=1).values
+    b = torch.sort(b.long().to(a.device), dim=1).values
+    first = torch.ones_like(b, dtype=torch.bool)
+    first[:, 1:] = b[:, 1:] != b[:, :-1]
+    found = (a.gather(1, torch.searchsorted(a, b).clamp_max(a.shape[1] - 1)) == b) & first
+    return float((found.sum(1).double() / a.shape[1]).mean())
+
+
+# the kernel sizes phases 2 and 3 time (each size is checked); the others were
+# cut to make room for phase 12 (PERF.md §4)
+TIMED_FLAT_K = (3, 5, 128, 512)
+TIMED_PANEL_K = (64, 128, 512)
 
 
 def phase_flat_topk(torch, dev, rng):
@@ -380,21 +454,22 @@ def phase_flat_topk(torch, dev, rng):
             same = bool(torch.equal(ik, ik2) and torch.equal(dk, dk2))  # deterministic
             row = {"phase": "flat_topk", "metric": metric, "k": k, "shape": [b, n, d], "overlap": ov,
                    "max_rel_err": rel, "max_abs_err": err, "deterministic": same, "ok": bool(ok and same)}
-            # every (metric, k) is checked; l2 is timed at the oracle's k only (the
-            # profiles are the run's largest cost, and no record reads the others)
-            if metric == "cosine" or k == 3:
+            # every (metric, k) is checked; timed are the oracle's k (3), search's
+            # default top_k (5), the shared-memory lists (128) and the device-memory
+            # ones (512), l2 at k = 3 only (the profiles are the run's largest cost)
+            if k == 3 or (metric == "cosine" and k in TIMED_FLAT_K):
                 qb = qm.to(torch.bfloat16)
 
                 def kernel():
                     return flat_topk(qm, e, en, n, k, metric)
 
-                (k_ms, k_parts, k_att), c_ms = device_ms(torch, kernel), cuda_ms(torch, kernel)
-                p_ms = cuda_ms(torch, lambda: flat_search(e, qm, n, k, metric, en=en), reps=3)
                 if metric == "l2":
                     lib = lambda: torch.topk(2.0 * (qb @ e.T).float() - en, k)  # noqa: E731
                 else:
                     lib = lambda: torch.topk(qb @ e.T, k)  # noqa: E731
-                l_ms, _, l_att = device_ms(torch, lib)
+                (k_ms, k_parts, k_att), (l_ms, _, l_att) = device_ms_many(torch, [(kernel, 10), (lib, 10)])
+                c_ms = cuda_ms(torch, kernel)
+                p_ms = cuda_ms(torch, lambda: flat_search(e, qm, n, k, metric, en=en), reps=3)
                 n_bytes = n * d * 2 + b * d * 4 + (n * 4 if metric == "l2" else 0) + b * k * 8
                 b_ms, b_by = bound(n_bytes, 2.0 * b * n * d)
                 row.update(kernel_ms=k_ms, kernel_parts_ms=k_parts, profile=k_att, call_ms=c_ms, plain_ms=p_ms,
@@ -437,28 +512,29 @@ def phase_knn_panel(torch, dev, rng):
         ik2, dk2 = knn_panel(ebf, norms, k, q_start, q_count, n_real)
         same = bool(torch.equal(ik, ik2) and torch.equal(dk, dk2))  # deterministic
         del ik2, dk2
-
-        def kernel():
-            return knn_panel(ebf, norms, k, q_start, q_count, n_real)
-
-        k_ms, k_parts, k_att = device_ms(torch, kernel, reps=3 if k > 256 else 10)
-        c_ms = cuda_ms(torch, kernel, reps=3 if q_count > 4096 else 10)
-        p_ms = cuda_ms(torch, plain, reps=1)
-
-        def lib():  # one matmul + topk over the same [q_count, n] panel, in 1024-row blocks
-            for s in range(q_start, q_start + q_count, 1024):
-                qq = ebf[s : s + 1024]
-                torch.topk(2.0 * (qq @ ebf[:n_real].T).float() - norms[:n_real], k)
-
-        l_ms, _, l_att = device_ms(torch, lib)
-        n_bytes = n * d * 2 + n * 4 + q_count * k * 8
-        b_ms, b_by = bound(n_bytes, 2.0 * q_count * n_real * d)
         row = {"phase": "knn_panel", "shape": [q_count, n, d], "n_real": n_real, "k": k, "overlap": ov,
                "max_abs_err": err, "self_hits": self_hits, "pad_hits": pad_hits, "deterministic": same,
-               "kernel_ms": k_ms, "kernel_parts_ms": k_parts, "profile": k_att, "call_ms": c_ms,
-               "plain_ms": p_ms,
-               "library_ms": l_ms, "library_profile": l_att, "bound_ms": b_ms,
-               "bound_by": b_by, "ok": bool(ok and same)}
+               "ok": bool(ok and same)}
+        # every case is checked; timed are the builds' own launches (k = 64:
+        # diskann, 128: hnsw at its defaults, 512: hnsw at M = 64, efC = 512)
+        if q_count == n and k in TIMED_PANEL_K:
+
+            def kernel():
+                return knn_panel(ebf, norms, k, q_start, q_count, n_real)
+
+            def lib():  # one matmul + topk over the same [q_count, n] panel, in 1024-row blocks
+                for s in range(q_start, q_start + q_count, 1024):
+                    qq = ebf[s : s + 1024]
+                    torch.topk(2.0 * (qq @ ebf[:n_real].T).float() - norms[:n_real], k)
+
+            (k_ms, k_parts, k_att), (l_ms, _, l_att) = device_ms_many(
+                torch, [(kernel, 3 if k > 256 else 10), (lib, 10)])
+            c_ms = cuda_ms(torch, kernel, reps=3 if q_count > 4096 else 10)
+            p_ms = cuda_ms(torch, plain, reps=1)
+            n_bytes = n * d * 2 + n * 4 + q_count * k * 8
+            b_ms, b_by = bound(n_bytes, 2.0 * q_count * n_real * d)
+            row.update(kernel_ms=k_ms, kernel_parts_ms=k_parts, profile=k_att, call_ms=c_ms, plain_ms=p_ms,
+                       library_ms=l_ms, library_profile=l_att, bound_ms=b_ms, bound_by=b_by)
         emit(row)
         if not ok:
             fail(f"knn_panel disagrees with its plain version: {row}")
@@ -651,9 +727,8 @@ def timed_row(torch, kernel, p_ms: float, lib, n_bytes: float, flops: float, rep
     """A kernel's device and call time, beside its plain version's time
     ``p_ms`` on the same inputs, a library call's time, and its bound on the
     card."""
-    k_ms, k_parts, k_att = device_ms(torch, kernel, reps=reps)
+    (k_ms, k_parts, k_att), (l_ms, _, l_att) = device_ms_many(torch, [(kernel, reps), (lib, reps)])
     c_ms = cuda_ms(torch, kernel, reps=reps)
-    l_ms, _, l_att = device_ms(torch, lib, reps=reps)
     b_ms, b_by = bound(n_bytes, flops)
     return {"kernel_ms": k_ms, "kernel_parts_ms": k_parts, "profile": k_att, "call_ms": c_ms,
             "plain_ms": p_ms, "library_ms": l_ms, "library_profile": l_att,
@@ -1023,9 +1098,10 @@ def _recall(got, truth, k: int = 3) -> float:
     return float(np.mean([len({x.id for x in a} & {x.id for x in b}) / k for a, b in zip(got, truth)]))
 
 
-def panel_row(torch, kp, ebf, norms, k: int) -> dict:
+def panel_row(torch, kp, ebf, norms, k: int, d: int) -> dict:
     """knn_panel over every row of a build's corpus at its k: checked against
-    its plain version, and timed."""
+    its plain version, and timed. ``d`` is the rows' width before the
+    zero-padding to a multiple of 16, the width the bound counts."""
     n = ebf.shape[0]
     ik, dk = kp.knn_panel(ebf, norms, k)
     (ip, dp), p_ms = timed_once(torch, lambda: kp.knn_panel_plain(ebf, norms, k, 0, n, n))
@@ -1038,10 +1114,10 @@ def panel_row(torch, kp, ebf, norms, k: int) -> dict:
         for s in range(0, n, 1024):
             torch.topk(2.0 * (ebf[s : s + 1024] @ ebf.T).float() - norms, k)
 
-    d = ebf.shape[1]
     row = timed_row(torch, lambda: kp.knn_panel(ebf, norms, k), p_ms, lib, n * (d * 2 + 4) + n * k * 8,
                     2.0 * n * n * d)
-    return {"shape": [n, n, d], "k": k, "overlap": ov, "max_abs_err": err, "self_hits": self_hits, **row}
+    return {"shape": [n, n, d], "padded_d": ebf.shape[1], "k": k, "overlap": ov, "max_abs_err": err,
+            "self_hits": self_hits, **row}
 
 
 def phase_lifecycle(torch, dev, workdir: str, main: dict):
@@ -1192,7 +1268,7 @@ def phase_lifecycle(torch, dev, workdir: str, main: dict):
                     + q.shape[0] * 3 * 8, 2.0 * q.shape[0] * n_flat * d_pad, reps=10)}
     for path, arr, k in (("from_embeddings_diskann", emb, 64), ("from_embeddings_hnsw_f16", emb.astype(np.float16), 128)):
         ebf, norms = kp.upload_panel_inputs(arr, dev)
-        kr[("knn_panel", path)] = panel_row(torch, kp, ebf, norms, k)
+        kr[("knn_panel", path)] = panel_row(torch, kp, ebf, norms, k, arr.shape[1])
         del ebf, norms
         torch.cuda.empty_cache()
 
@@ -1316,7 +1392,8 @@ def phase_checkpoint(torch, dev, workdir: str, chunks, queries):
     from leann_torch import BatchedSearcher, LeannSearcher
     from leann_torch.api import PassageManager
     from leann_torch.embeddings.encoder import get_encoder
-    from leann_torch.embeddings.tokenizer import HashTokenizer, HFTokenizer
+    from leann_torch.embeddings.tokenizer import HashTokenizer, HFTokenizer, bert_pipeline
+    from leann_torch.embeddings.tokenizer_json import JsonTokenizer, read_config
     from leann_torch.ops import knn_panel as kp
     from leann_torch.ops.flat_topk import flat_topk
     from leann_torch.storage import index_all_in_bytes, load_token_cache
@@ -1387,7 +1464,17 @@ def phase_checkpoint(torch, dev, workdir: str, chunks, queries):
     tokens_equal = bool(np.array_equal(n_ids, p_ids) and np.array_equal(n_mask, p_mask))
     del n_ids, n_mask, p_ids, p_mask
     (wp_ids, _), wordpiece_s = _timed(lambda: HFTokenizer(ckpt, max_length=128).encode_batch(chunks))
-    del wp_ids
+    # the same WordPiece from a tokenizer.json (as BertTokenizerFast saves it) in a directory of its own
+    json_dir = os.path.join(workdir, "minilm-l6-tokenizer-json")
+    os.makedirs(json_dir, exist_ok=True)
+    with open(os.path.join(ckpt, "vocab.txt"), encoding="utf-8") as f:
+        vocab_lines = [ln.rstrip("\n") for ln in f]
+    shutil.copy(os.path.join(ckpt, "tokenizer_config.json"), json_dir)
+    with open(os.path.join(json_dir, "tokenizer.json"), "w", encoding="utf-8") as f:
+        json.dump(bert_pipeline(vocab_lines, read_config(ckpt)), f)
+    (tj_ids, _), tokenizer_json_s = _timed(lambda: JsonTokenizer(json_dir, max_length=128).encode_batch(chunks))
+    routes_equal = bool(np.array_equal(wp_ids, tj_ids))
+    del wp_ids, tj_ids
     with open(prefix + ".meta.json") as f:
         sources = json.load(f)["passage_sources"]
     native_pm, (plain_pm, _) = PassageManager(sources), _timed(lambda: PassageManager(sources, use_native=False))
@@ -1399,7 +1486,7 @@ def phase_checkpoint(torch, dev, workdir: str, chunks, queries):
     # each kernel at this path's shapes, on its inputs
     kr = {}
     ebf, norms = kp.upload_panel_inputs(built["emb"], dev)
-    kr[("knn_panel", "checkpoint_diskann")] = panel_row(torch, kp, ebf, norms, built["k"])
+    kr[("knn_panel", "checkpoint_diskann")] = panel_row(torch, kp, ebf, norms, built["k"], built["emb"].shape[1])
     del ebf, norms
     torch.cuda.empty_cache()
     kr[("flat_topk", "checkpoint_oracle")] = oracle_row(torch, dev, oracle_searcher, queries)
@@ -1418,7 +1505,8 @@ def phase_checkpoint(torch, dev, workdir: str, chunks, queries):
                        "labels_differing": differing},
            "hash_tokenizer": {"texts": len(chunks), "native_s": native_s, "python_s": python_s,
                               "equal": tokens_equal},
-           "wordpiece_s": wordpiece_s,
+           "wordpiece_s": wordpiece_s, "wordpiece_tokenizer_json_s": tokenizer_json_s,
+           "wordpiece_routes_equal": routes_equal,
            "passages": {"lookups": len(pids), "native_s": native_lookup_s, "offset_map_s": plain_lookup_s,
                         "equal": passages_equal},
            "all_in_bytes": index_all_in_bytes(prefix), "launches": launches,
@@ -1429,6 +1517,8 @@ def phase_checkpoint(torch, dev, workdir: str, chunks, queries):
         fail(f"the checkpoint did not load as one: loaded_hf {enc.loaded_hf}, {type(enc.tokenizer).__name__}")
     if unk_share != 0.0:
         fail(f"[UNK] share {unk_share} on the corpus")
+    if not routes_equal:
+        fail("the WordPiece from tokenizer.json gave other ids than the one from vocab.txt")
     if calib_diff is None or calib_diff > 1e-6:
         fail(f"the two builds' .calib.npz are missing or differ: {sorted(calib)}, max diff {calib_diff}")
     if launches["checkpoint_diskann"]["knn_panel"] != 1 or built["k"] != 64:
@@ -1464,20 +1554,21 @@ def oracle_row(torch, dev, oracle_searcher, queries, k: int = 3, q=None) -> dict
         q = be.get_encoder().encode(queries)
     if metric == "cosine":
         q = q / np.linalg.norm(q, axis=1, keepdims=True)
+    d = q.shape[1]  # the width before the zero-padding: the bound counts this
     q = pad_features(torch.from_numpy(np.ascontiguousarray(q, np.float32)).to(dev))
-    n_flat, d_pad = be.n, be._emb.shape[1]
+    n_flat = be.n
     ik, dk = flat_topk(q, be._emb, be._en, n_flat, k, metric)
     (ip, dp), p_ms = timed_once(torch, lambda: flat_search(be._emb, q, n_flat, k, metric, en=be._en))
     qb = q.to(torch.bfloat16)
-    return {"shape": [q.shape[0], n_flat, d_pad], "k": k, "metric": metric, "overlap": overlap(ik, ip),
-            "max_abs_err": float((dk - dp).abs().max()),
+    return {"shape": [q.shape[0], n_flat, d], "padded_d": be._emb.shape[1], "k": k, "metric": metric,
+            "overlap": overlap(ik, ip), "max_abs_err": float((dk - dp).abs().max()),
             **timed_row(torch, lambda: flat_topk(q, be._emb, be._en, n_flat, k, metric), p_ms,
-                        lambda: torch.topk(qb @ be._emb.T, k), n_flat * d_pad * 2 + q.shape[0] * d_pad * 4
-                        + q.shape[0] * k * 8, 2.0 * q.shape[0] * n_flat * d_pad, reps=10)}
+                        lambda: torch.topk(qb @ be._emb.T, k), n_flat * d * 2 + q.shape[0] * d * 4
+                        + q.shape[0] * k * 8, 2.0 * q.shape[0] * n_flat * d, reps=10)}
 
 # phase 10: benchmarks/train_encoder.py:65-67's batch and learning rate; its
-# 800 steps cut to 200 for the smoke's time
-TRAIN_STEPS, TRAIN_BATCH, TRAIN_LR = 200, 256, 1e-4
+# 800 steps cut to 100 for the smoke's time (200 until phase 12 came)
+TRAIN_STEPS, TRAIN_BATCH, TRAIN_LR = 100, 256, 1e-4
 TRAIN_Q_LEN, TRAIN_D_LEN = 32, 128
 
 
@@ -1591,7 +1682,7 @@ def phase_train(torch, dev, workdir: str, main: dict, ckpt_state: dict):
 
     kr = {}
     ebf, norms = kp.upload_panel_inputs(built["emb"], dev)
-    kr[("knn_panel", "trained_diskann")] = panel_row(torch, kp, ebf, norms, built["k"])
+    kr[("knn_panel", "trained_diskann")] = panel_row(torch, kp, ebf, norms, built["k"], built["emb"].shape[1])
     del ebf, norms
     torch.cuda.empty_cache()
     kr[("flat_topk", "trained_oracle")] = oracle_row(torch, dev, built["oracle_searcher"], queries)
@@ -2054,7 +2145,7 @@ def phase_surface(torch, dev, workdir: str):
     # each kernel at this path's shapes, on its inputs
     kr = {}
     ebf_k, norms = kp.upload_panel_inputs(seen["emb"], dev)
-    kr[("knn_panel", "surface")] = panel_row(torch, kp, ebf_k, norms, seen["k"])
+    kr[("knn_panel", "surface")] = panel_row(torch, kp, ebf_k, norms, seen["k"], seen["emb"].shape[1])
     del ebf_k, norms
     torch.cuda.empty_cache()
     kr[("flat_topk", "surface")] = oracle_row(torch, dev, oracle_searcher, queries, k=5)
@@ -2092,6 +2183,369 @@ def phase_surface(torch, dev, workdir: str):
         fail(f"the ollama-mode index disagrees with a flat search over the same vectors: {http}")
     if not removed:
         fail(f"remove folder-http or list: {listed[-2000:]}")
+    check_rows(kr)
+    return kr, launches
+
+
+# phase 12: checkpoints whose tokenizer is not WordPiece. intfloat/multilingual-e5-small's
+# published config.json (BertModel; XLM-R's SentencePiece Unigram tokenizer) and
+# sentence-transformers/all-distilroberta-v1's (RobertaModel; byte-level BPE)
+E5_SMALL = dict(vocab_size=250037, dim=384, n_layers=12, n_heads=12, mlp_dim=1536, max_len=512)
+DISTILROBERTA = dict(vocab_size=50265, dim=768, n_layers=6, n_heads=12, mlp_dim=3072, max_len=514)
+BPE_CHUNKS = 20_000  # (b) runs over the first 20,000 of phase 4's chunks
+NONASCII_TEXTS = 10_000  # each family's tokenizer is also timed on this many non-ASCII texts
+XLMR_SPECIALS = ["<s>", "<pad>", "</s>", "<unk>"]
+
+
+def _seeded_tree(cfg, seed: int) -> dict:
+    """Seeded weights at ``cfg``: ``init_params``' layers, a token table of
+    numpy normals (std 0.02; ``init_params`` draws it through a threefry in
+    numpy, ~6 s at 250,037 x 384)."""
+    from dataclasses import replace
+
+    from leann_torch.embeddings import encoder as te
+
+    tree = te.init_params(replace(cfg, vocab_size=8))
+    rng = np.random.default_rng(seed)
+    tree["tok_emb"] = rng.standard_normal((cfg.vocab_size, cfg.dim), dtype=np.float32) * np.float32(0.02)
+    return tree
+
+
+def _write_json(path: str, obj) -> None:
+    with open(path, "w", encoding="utf-8") as f:
+        json.dump(obj, f, ensure_ascii=False)
+
+
+def _added(content: str, tid: int, **kw) -> dict:
+    return {"id": tid, "content": content, "single_word": False, "lstrip": kw.get("lstrip", False), "rstrip": False,
+            "normalized": False, "special": True}
+
+
+def darts_blob(rules: dict) -> bytes:
+    """A SentencePiece ``precompiled_charsmap``: u32 LE trie size, a
+    darts-clone double array over the rules' UTF-8 keys (a leaf's value: its
+    replacement's offset), then the NUL-terminated replacements."""
+    import struct
+
+    strings, values = b"", {}
+    for key, rep in rules.items():
+        values[key.encode()] = len(strings)
+        strings += rep.encode() + b"\0"
+    root: dict = {}
+    for key, v in values.items():
+        node = root
+        for c in key:
+            node = node.setdefault(c, {})
+        node[None] = v
+    units, used, bases = {0: 0}, {0}, set()
+    todo, lo = collections.deque([(root, 0)]), 1
+    while todo:  # breadth first; each base is sought from a little below the last one
+        node, pos = todo.popleft()
+        labels = ([0] if None in node else []) + sorted(c for c in node if c is not None)
+        base = lo
+        while base in bases or any(base ^ c in used for c in labels):
+            base += 1
+        lo = max(1, base - 256)
+        bases.add(base)
+        used.update(base ^ c for c in labels)
+        units[pos] = units.get(pos, 0) | ((pos ^ base) << 10) | ((None in node) << 8)
+        if None in node:
+            units[base] = node[None] | (1 << 31)
+        for c in sorted(c for c in node if c is not None):
+            units[base ^ c] = c
+            todo.append((node[c], base ^ c))
+    # whole 256-unit blocks: a lookup of any byte from any base stays inside
+    arr = [units.get(i, 0) for i in range(((max(max(units), max(bases)) >> 8) + 1) << 8)]
+    trie = struct.pack(f"<{len(arr)}I", *arr)
+    return struct.pack("<I", len(trie)) + trie + strings
+
+
+# the blocks whose NFKC forms the stand-in charsmap holds: Latin-1 to Greek,
+# general punctuation to number forms, enclosed alphanumerics, CJK symbols and
+# compatibility, presentation forms, half- and fullwidth forms
+NFKC_BLOCKS = ((0x00A0, 0x03FF), (0x2000, 0x218F), (0x2460, 0x24FF), (0x3000, 0x303F), (0x3300, 0x33FF),
+               (0xFB00, 0xFB4F), (0xFF00, 0xFFEF))
+
+
+def nmt_nfkc_rules() -> dict:
+    """Rules in the manner of SentencePiece's nmt_nfkc charsmap: the Nmt
+    controls dropped and its spaces made a space, each code point of
+    ``NFKC_BLOCKS`` whose NFKC form differs mapped to it, and each Latin
+    vowel (and c, n, y) with a combining grave, acute, circumflex, tilde or
+    diaeresis mapped to its precomposed letter."""
+    import unicodedata
+
+    rules = {chr(c): "" for c in (*range(0x01, 0x09), 0x0B, *range(0x0E, 0x20), 0x7F, 0x8F, 0x9F)}
+    rules.update({chr(c): " " for c in (0x09, 0x0A, 0x0C, 0x0D, 0x1680, *range(0x200B, 0x2010), 0x2028, 0x2029,
+                                        0xFEFF)})
+    for lo, hi in NFKC_BLOCKS:
+        for c in range(lo, hi + 1):
+            ch = chr(c)
+            if ch not in rules and unicodedata.normalize("NFKC", ch) != ch:
+                rules[ch] = unicodedata.normalize("NFKC", ch)
+    for base in "AEIOUCNYaeioucny":
+        for mark in "\u0300\u0301\u0302\u0303\u0308":
+            comp = unicodedata.normalize("NFC", base + mark)
+            if len(comp) == 1:
+                rules[base + mark] = comp
+    return rules
+
+
+# a non-ASCII sample for the tokenizers' timing: precomposed and decomposed
+# accents, CJK, Arabic, Devanagari, Cyrillic, emoji ZWJ sequences and skin
+# tones, fullwidth forms, ligatures, NBSP
+NONASCII_FRAGMENTS = ["Café naïve façade", "Cafe\u0301 nai\u0308ve", "中文测试，这是一个句子。", "مرحبا بالعالم",
+                      "नमस्ते दुनिया", "Привет мир", "👩\u200d💻 👍🏽 🇩🇪", "ＡＢＣ ﬁ ① ｶﾞ", "straße\xa0über", "한국어 문장"]
+
+
+def nonascii_sample(chunks, n: int) -> list:
+    """``n`` texts: a chunk's first 16 words with three fragments between them."""
+    rng = np.random.default_rng(15)
+    out = []
+    for i in range(n):
+        words = chunks[i].split()[:16]
+        for f in rng.choice(len(NONASCII_FRAGMENTS), 3, replace=False):
+            words.insert(int(rng.integers(0, len(words) + 1)), NONASCII_FRAGMENTS[int(f)])
+        out.append(" ".join(words))
+    return out
+
+
+def xlmr_tokenizer_files(path: str, vocab_size: int) -> dict:
+    """XLM-R's tokenizer pipeline in its published order (the
+    SentencePiece charsmap as ``Precompiled``, here :func:`nmt_nfkc_rules`,
+    then Replace(" {2,}", " "); Metaspace "▁" always; the template
+    "<s> $A </s>"), with a Unigram model
+    of ``vocab_size`` pieces: the four special tokens, the pieces that cover
+    ``synth_corpus`` words (▁w0..▁w49999 whole at ids 65,536 and up; ▁g, ▁d,
+    digits and digit pairs, letters), seeded filler pieces no corpus word
+    reaches, and <mask> last. -> {pieces by id range}."""
+    small = ["▁", "▁g", "▁d"] + [f"{i:02d}" for i in range(100)] + [str(i) for i in range(10)]
+    small += list("abcdefghijklmnopqrstuvwxyz")
+    scores = {"▁": -10.0, "▁g": -9.0, "▁d": -9.0}
+    vocab = [[p, 0.0] for p in XLMR_SPECIALS] + [[p, scores.get(p, -10.0 if len(p) == 2 else -11.0)] for p in small]
+    vocab += [[f"▁f{i}", -12.0] for i in range(65536 - len(vocab))]
+    word0 = len(vocab)
+    vocab += [[f"▁w{i}", -8.0] for i in range(50_000)]
+    vocab += [[f"▁f{i}", -12.0] for i in range(65536, 65536 + vocab_size - 1 - len(vocab))]
+    vocab.append(["<mask>", 0.0])
+    assert len(vocab) == vocab_size
+    spec = {
+        "version": "1.0", "truncation": None, "padding": None,
+        "added_tokens": [_added(p, i) for i, p in enumerate(XLMR_SPECIALS)] + [
+            _added("<mask>", vocab_size - 1, lstrip=True)],
+        "normalizer": {"type": "Sequence", "normalizers": [
+            {"type": "Precompiled", "precompiled_charsmap": base64.b64encode(darts_blob(nmt_nfkc_rules())).decode()},
+            {"type": "Replace", "pattern": {"Regex": " {2,}"}, "content": " "}]},
+        "pre_tokenizer": {"type": "Metaspace", "replacement": "▁", "prepend_scheme": "always", "split": True},
+        "post_processor": {"type": "TemplateProcessing",
+                           "single": [{"SpecialToken": {"id": "<s>", "type_id": 0}},
+                                      {"Sequence": {"id": "A", "type_id": 0}},
+                                      {"SpecialToken": {"id": "</s>", "type_id": 0}}],
+                           "pair": [], "special_tokens": {"<s>": {"id": "<s>", "ids": [0], "tokens": ["<s>"]},
+                                                          "</s>": {"id": "</s>", "ids": [2], "tokens": ["</s>"]}}},
+        "decoder": {"type": "Metaspace", "replacement": "▁", "prepend_scheme": "always", "split": True},
+        "model": {"type": "Unigram", "unk_id": 3, "vocab": vocab, "byte_fallback": False},
+    }
+    _write_json(os.path.join(path, "tokenizer.json"), spec)
+    _write_json(os.path.join(path, "tokenizer_config.json"), {
+        "tokenizer_class": "XLMRobertaTokenizer", "model_max_length": 512, "bos_token": "<s>", "eos_token": "</s>",
+        "sep_token": "</s>", "cls_token": "<s>", "unk_token": "<unk>", "pad_token": "<pad>",
+        "mask_token": {"__type": "AddedToken", "content": "<mask>", "lstrip": True, "rstrip": False, "normalized": False,
+                       "single_word": False, "special": True}})
+    return {"pieces": len(vocab), "corpus_words_from": word0}
+
+
+def roberta_tokenizer_files(path: str, vocab_size: int) -> dict:
+    """RoBERTa's byte-level BPE pipeline (ByteLevel without the prefix
+    space, RobertaProcessing) with a vocab of ``vocab_size``: the four
+    special tokens, the 256 byte characters, seeded fillers, the merged
+    tokens of the merges below at the top of the id range, <mask> last. The
+    merges: Ġ + w / g / d and every digit pair (the GPT-2 split puts a
+    word's digits in a pre-token of their own: a corpus word is 3-4
+    tokens)."""
+    bytes_chars = [chr(c) for c in range(ord("!"), ord("~") + 1)] + [chr(c) for c in range(0xA1, 0xAD)]
+    bytes_chars += [chr(c) for c in range(0xAE, 0x100)]
+    bytes_chars += [chr(256 + i) for i in range(256 - len(bytes_chars))]
+    digits = [str(i) for i in range(10)]
+    merges = [["Ġ", c] for c in "wgd"] + [[a, b] for a in digits for b in digits]
+    merged = [a + b for a, b in merges]
+    vocab = XLMR_SPECIALS + bytes_chars
+    vocab += [f"Ġf{i}" for i in range(vocab_size - 1 - len(merged) - len(vocab))] + merged + ["<mask>"]
+    assert len(vocab) == len(set(vocab)) == vocab_size
+    spec = {
+        "version": "1.0", "truncation": None, "padding": None,
+        "added_tokens": [_added(p, i) for i, p in enumerate(XLMR_SPECIALS)] + [
+            _added("<mask>", vocab_size - 1, lstrip=True)],
+        "normalizer": None,
+        "pre_tokenizer": {"type": "ByteLevel", "add_prefix_space": False, "trim_offsets": True, "use_regex": True},
+        "post_processor": {"type": "RobertaProcessing", "sep": ["</s>", 2], "cls": ["<s>", 0], "trim_offsets": True,
+                           "add_prefix_space": False},
+        "decoder": {"type": "ByteLevel", "add_prefix_space": True, "trim_offsets": True, "use_regex": True},
+        "model": {"type": "BPE", "dropout": None, "unk_token": None, "continuing_subword_prefix": "",
+                  "end_of_word_suffix": "", "fuse_unk": False, "byte_fallback": False, "ignore_merges": False,
+                  "vocab": {p: i for i, p in enumerate(vocab)}, "merges": merges},
+    }
+    _write_json(os.path.join(path, "tokenizer.json"), spec)
+    _write_json(os.path.join(path, "tokenizer_config.json"), {
+        "tokenizer_class": "RobertaTokenizer", "add_prefix_space": False, "model_max_length": 512,
+        "bos_token": "<s>", "eos_token": "</s>", "sep_token": "</s>", "cls_token": "<s>", "unk_token": "<unk>",
+        "pad_token": "<pad>", "mask_token": "<mask>"})
+    return {"vocab": len(vocab), "merges": len(merges)}
+
+
+def e5_small_checkpoint(path: str) -> dict:
+    """A checkpoint directory at multilingual-e5-small's widths: seeded
+    weights written by the port's ``save_hf_weights`` and an XLM-R
+    tokenizer (:func:`xlmr_tokenizer_files`)."""
+    from dataclasses import replace
+
+    from leann_torch.embeddings import encoder as te
+
+    cfg = replace(te.EncoderConfig(), name="e5-small-seeded", arch="bert", **E5_SMALL)
+    te.save_hf_weights(_seeded_tree(cfg, 12), cfg, path)
+    info = xlmr_tokenizer_files(path, E5_SMALL["vocab_size"])
+    with open(os.path.join(path, "config.json")) as f:
+        return {**json.load(f), "tokenizer": info}
+
+
+def distilroberta_checkpoint(path: str) -> dict:
+    """A checkpoint directory at all-distilroberta-v1's widths as a
+    ``RobertaForMaskedLM`` saves it: the encoder's keys under ``roberta.``,
+    an ``lm_head``, one token type, 514 positions, pad id 1; seeded weights
+    (the port's writer, the keys renamed) and a byte-level BPE tokenizer
+    (:func:`roberta_tokenizer_files`)."""
+    from dataclasses import replace
+
+    from leann_torch.embeddings import encoder as te
+
+    cfg = replace(te.EncoderConfig(), name="distilroberta-seeded", arch="bert", **DISTILROBERTA)
+    te.save_hf_weights(_seeded_tree(cfg, 13), cfg, path)
+    st = os.path.join(path, "model.safetensors")
+    sd = {"roberta." + k: v for k, v in te.read_safetensors(st).items() if not k.startswith("pooler.")}
+    sd["roberta.embeddings.token_type_embeddings.weight"] = sd["roberta.embeddings.token_type_embeddings.weight"][:1]
+    rng, d = np.random.default_rng(14), DISTILROBERTA["dim"]
+    sd["lm_head.dense.weight"] = rng.standard_normal((d, d), dtype=np.float32) * np.float32(0.02)
+    sd["lm_head.dense.bias"] = np.zeros(d, np.float32)
+    sd["lm_head.layer_norm.weight"], sd["lm_head.layer_norm.bias"] = np.ones(d, np.float32), np.zeros(d, np.float32)
+    sd["lm_head.bias"] = np.zeros(DISTILROBERTA["vocab_size"], np.float32)
+    te.write_safetensors(sd, st)
+    with open(os.path.join(path, "config.json")) as f:
+        config = json.load(f)
+    config.update(architectures=["RobertaForMaskedLM"], model_type="roberta", type_vocab_size=1, pad_token_id=1,
+                  bos_token_id=0, eos_token_id=2, layer_norm_eps=1e-5)
+    _write_json(os.path.join(path, "config.json"), config)
+    return {**config, "tokenizer": roberta_tokenizer_files(path, DISTILROBERTA["vocab_size"])}
+
+
+def _family_path(torch, dev, workdir: str, tag: str, write_checkpoint, chunks, queries, counters, launches) -> dict:
+    """One checkpoint family of phase 12: the directory written, diskann
+    and a flat oracle from it (:func:`indexes_from_dir`), the checks' inputs
+    and the searches. -> {row, kernel rows, failures}."""
+    from leann_torch import LeannSearcher
+    from leann_torch.embeddings.encoder import get_encoder
+    from leann_torch.embeddings.tokenizer_json import JsonTokenizer
+    from leann_torch.ops import knn_panel as kp
+    from leann_torch.storage import index_all_in_bytes, load_token_cache
+
+    ckpt = os.path.join(workdir, tag)
+    os.makedirs(ckpt, exist_ok=True)
+    hf_config, write_s = _timed(lambda: write_checkpoint(ckpt))
+    # the tokenizer alone, cold (a fresh reader: no word memoised), on the corpus;
+    # the encoder the builds then take from the cache holds this reader
+    enc = get_encoder(ckpt, max_length=128, device=dev)
+    (tok_ids, _), tokenize_s = _timed(lambda: enc.tokenizer.encode_batch(chunks))
+    del tok_ids
+    # a fresh reader on the non-ASCII sample: the grapheme, Unicode and byte paths
+    sample = nonascii_sample(chunks, NONASCII_TEXTS)
+    (s_ids, s_mask), nonascii_s = _timed(lambda: JsonTokenizer(ckpt, max_length=128).encode_batch(sample))
+    s_real = s_ids[s_mask.astype(bool)]
+    nonascii = {"texts": len(sample), "chars": sum(map(len, sample)), "s": nonascii_s,
+                "unk_share": float((s_real == enc.tokenizer.unk_id).mean()),
+                "normalized": enc.tokenizer.normalizer("Ａ ﬁ e\u0301") if enc.tokenizer.normalizer else None}
+    del s_ids, s_mask, s_real
+    built = indexes_from_dir(torch, workdir, ckpt, tag, chunks, queries, counters, launches)
+    tok, tok_lengths = load_token_cache(built["prefix"])
+    is_json = isinstance(enc.tokenizer, JsonTokenizer)
+    real = np.arange(tok.shape[1])[None, :] < tok_lengths[:, None]
+    unk = int((np.asarray(tok)[real] == enc.tokenizer.unk_id).sum()) if is_json else None
+    searcher = LeannSearcher(built["prefix"])
+    got, ms_q = _timed_search(torch, searcher, queries, **SEARCH_KW)
+    recall = _recall(got, built["truth"])
+    kr = {}
+    ebf, norms = kp.upload_panel_inputs(built["emb"], dev)
+    kr[("knn_panel", f"{tag}_diskann")] = panel_row(torch, kp, ebf, norms, built["k"], built["emb"].shape[1])
+    del ebf, norms
+    torch.cuda.empty_cache()
+    kr[("flat_topk", f"{tag}_oracle")] = oracle_row(torch, dev, built["oracle_searcher"], queries)
+    row = {"model": tag, "n_chunks": len(chunks),
+           "hf_config": {k: hf_config.get(k) for k in ("model_type", "vocab_size", "hidden_size", "num_hidden_layers",
+                                                       "num_attention_heads", "intermediate_size",
+                                                       "max_position_embeddings", "type_vocab_size", "pad_token_id")},
+           "tokenizer_files": hf_config["tokenizer"], "write_checkpoint_s": write_s,
+           "loaded_hf": enc.loaded_hf, "tokenizer": type(enc.tokenizer).__name__,
+           "tokenizer_class": getattr(enc.tokenizer, "tokenizer_class", None), "tokenize_s": tokenize_s,
+           "tokenize_nonascii": nonascii,
+           "token_store_dtype": str(tok.dtype), "max_token_id": int(np.asarray(tok).max()),
+           "unk_tokens": unk, "pad_id": getattr(enc.tokenizer, "pad_id", None),
+           "mean_tokens": float(tok_lengths.mean()),
+           "build_s": dict(built["builder"].phase_seconds), "flat_build_s": dict(built["oracle"].phase_seconds),
+           "knn_k": built["k"], "recall_at_3": recall, "search_ms_per_query": ms_q, "search_kw": SEARCH_KW,
+           "all_in_bytes": index_all_in_bytes(built["prefix"]),
+           "launches": {p: launches[p] for p in (f"{tag}_diskann", f"{tag}_oracle")},
+           "kernels": {f"{name}@{path}": {key: v for key, v in r.items() if key != "kernel_parts_ms"}
+                       for (name, path), r in kr.items()}}
+    failures = []
+    if not (enc.loaded_hf and is_json):
+        failures.append(f"{tag}: the checkpoint did not load as one: loaded_hf {enc.loaded_hf}, "
+                        f"{type(enc.tokenizer).__name__}")
+    if nonascii["normalized"] not in (None, "A fi é"):
+        failures.append(f"{tag}: the normalizer gave {nonascii['normalized']!r} for 'Ａ ﬁ e\u0301', not 'A fi é'")
+    if unk != 0:
+        failures.append(f"{tag}: {unk} corpus tokens are <unk>")
+    if launches[f"{tag}_diskann"]["knn_panel"] != 1 or built["k"] != 64:
+        failures.append(f"{tag}: the diskann build did not launch knn_panel once at k = 64: {launches}")
+    if launches[f"{tag}_oracle"]["flat_topk"] != 1:
+        failures.append(f"{tag}: the oracle did not launch flat_topk once: {launches}")
+    if recall < 0.80:
+        failures.append(f"{tag}: recall@3 {recall:.4f} below the 0.80 sanity floor")
+    return {"row": row, "kr": kr, "failures": failures, "tok": tok}
+
+
+def phase_multilingual(torch, dev, workdir: str, chunks, queries):
+    """Phase 12 -> (kernel rows by (kernel, path), launches by path)."""
+    from leann_torch.ops import knn_panel as kp
+    from leann_torch.ops.flat_topk import flat_topk
+
+    counters = (flat_topk, kp.knn_panel, kp.knn_panel_ext, kp.topk_merge)
+    launches, kr = {}, {}
+    t0 = time.time()
+    a = _family_path(torch, dev, workdir, "e5", e5_small_checkpoint, chunks, queries, counters, launches)
+    a["row"]["model"] = "multilingual-e5-small widths, seeded weights, XLM-R Unigram tokenizer.json"
+    a["row"]["phase_s"] = time.time() - t0
+    int32 = a["tok"].dtype == np.int32 and a["row"]["max_token_id"] > 65535
+    a["row"]["int32_store_above_65535"] = bool(int32)
+    del a["tok"]
+    emit({"phase": "multilingual", **a["row"]})
+    t0 = time.time()
+    sub = chunks[:BPE_CHUNKS]
+    sub_queries = [" ".join(sub[i].split()[:12]) for i in np.random.default_rng(12).choice(len(sub), 64, replace=False)]
+    b = _family_path(torch, dev, workdir, "distilroberta", distilroberta_checkpoint, sub, sub_queries, counters,
+                     launches)
+    b["row"]["model"] = "all-distilroberta-v1 widths, seeded weights under roberta., byte-level BPE tokenizer.json"
+    b["row"]["phase_s"] = time.time() - t0
+    u16 = b["tok"].dtype == np.uint16
+    del b["tok"]
+    emit({"phase": "multilingual_bpe", **b["row"]})
+    failures = a["failures"] + b["failures"]
+    if not int32:
+        failures.append(f"the e5 token store is {a['row']['token_store_dtype']} with ids up to "
+                        f"{a['row']['max_token_id']}: not int32 above 65,535")
+    if not u16:
+        failures.append(f"the distilroberta token store is {b['row']['token_store_dtype']}, not uint16")
+    if failures:
+        fail("; ".join(failures))
+    kr.update(a["kr"])
+    kr.update(b["kr"])
     check_rows(kr)
     return kr, launches
 
@@ -2154,6 +2608,7 @@ def main() -> int:
         phase_repair(torch, main_state)
         more.append(phase_train(torch, dev, workdir, main_state, ckpt_state))
         more.append(phase_surface(torch, dev, workdir))
+        more.append(phase_multilingual(torch, dev, workdir, main_state["chunks"], main_state["queries"]))
     for kr, more_launches in more:
         launches.update(more_launches)
         rows += [(name, path, r, b1 if name == "flat_topk" else b2) for (name, path), r in kr.items()]

@@ -412,13 +412,16 @@ class TorchEncoder:
 # ---------------------------------------------------------------------------
 
 _ST_DTYPES = {"F32": np.float32, "F16": np.float16, "BF16": np.uint16}
+_ST_SKIPPED = ("I64", "I32", "I16", "I8", "U64", "U32", "U16", "U8", "BOOL")
 
 
 def read_safetensors(path: str) -> Dict[str, np.ndarray]:
     """A ``.safetensors`` file -> {name: f32 array}, parsed here: an 8-byte
     little-endian header length, a JSON header of ``dtype`` / ``shape`` /
     ``data_offsets`` per tensor (``__metadata__`` skipped), then the data.
-    F32, F16 and BF16 tensors are widened to f32; another dtype raises."""
+    F32, F16 and BF16 tensors are widened to f32; integer and boolean ones
+    (buffers such as ``embeddings.position_ids``; no weight is one) are
+    skipped; another dtype raises."""
     raw = np.memmap(path, dtype=np.uint8, mode="r")
     n = int(raw[:8].view("<u8")[0])
     header = json.loads(bytes(raw[8 : 8 + n]).decode("utf-8"))
@@ -426,6 +429,8 @@ def read_safetensors(path: str) -> Dict[str, np.ndarray]:
     out = {}
     for name, info in header.items():
         if name == "__metadata__":
+            continue
+        if info["dtype"] in _ST_SKIPPED:
             continue
         dt = _ST_DTYPES.get(info["dtype"])
         if dt is None:
@@ -461,11 +466,19 @@ def write_safetensors(tensors: Dict[str, np.ndarray], path: str) -> None:
     os.replace(tmp, path)
 
 
-def _read_state_dict(path: str) -> Dict[str, np.ndarray]:
-    """A checkpoint directory's weights -> {BertModel key: f32 array}. The
-    ``bert.`` prefix of a checkpoint saved from a ``BertFor*`` head is
-    stripped and LayerNorm's old ``gamma`` / ``beta`` names are renamed, as
-    ``AutoModel`` does."""
+# the base model's key prefix in a checkpoint saved from a head
+# (``base_model_prefix``), by ``model_type``; ``bert.`` for any other type
+_BASE_PREFIX = {"roberta": "roberta.", "xlm-roberta": "roberta."}
+
+
+def _read_state_dict(path: str, model_type: str = "bert") -> Dict[str, np.ndarray]:
+    """A checkpoint directory's weights -> {base model key: f32 array}, as
+    ``AutoModel`` reads them: in a checkpoint saved from a head
+    (``BertForMaskedLM``, ``RobertaForMaskedLM``) the base model's prefix is
+    stripped (``bert.``; ``roberta.`` for ``roberta`` and ``xlm-roberta``)
+    and the head's own tensors (``lm_head.*``, ``cls.*``) are dropped; the
+    pooler, which masked-mean pooling never reads, is dropped too; LayerNorm's
+    old ``gamma`` / ``beta`` names are renamed."""
     st = os.path.join(path, "model.safetensors")
     bin_path = os.path.join(path, "pytorch_model.bin")
     if os.path.exists(st):
@@ -476,9 +489,13 @@ def _read_state_dict(path: str) -> Dict[str, np.ndarray]:
               if isinstance(v, torch.Tensor) and v.is_floating_point()}
     else:
         raise FileNotFoundError(f"{path} holds neither model.safetensors nor pytorch_model.bin")
+    prefix = _BASE_PREFIX.get(model_type, "bert.")
+    if any(k.startswith(prefix) for k in sd):
+        sd = {k[len(prefix):]: v for k, v in sd.items() if k.startswith(prefix)}
     out = {}
     for k, v in sd.items():
-        k = k[len("bert."):] if k.startswith("bert.") else k
+        if k.startswith("pooler."):
+            continue
         if k.endswith(".gamma"):
             k = k[: -len("gamma")] + "weight"
         elif k.endswith(".beta"):
@@ -508,7 +525,7 @@ def load_hf_weights(path: str) -> Tuple[Dict, EncoderConfig]:
         normalize=True,
         center=True,  # all-but-the-top for checkpoints too (calibrate)
     )
-    sd = _read_state_dict(path)
+    sd = _read_state_dict(path, hf.get("model_type", "bert"))
 
     def dense(prefix):
         return {"w": np.ascontiguousarray(sd[prefix + ".weight"].T), "b": sd[prefix + ".bias"]}

@@ -501,3 +501,73 @@ def test_cli_runs_on_the_card_by_default(cuda, tmp_path, monkeypatch, capsys):
     assert capsys.readouterr().out.startswith("[simulated] Based on the retrieved context: ")
     on_cpu = LeannSearcher(prefix, device="cpu").search(q, top_k=5, complexity=64, beam_width=8)
     assert len({r.id for r in on_cpu} & {r.id for r in want}) >= 4
+
+
+def _int32_checkpoint(path, words):
+    """A tiny checkpoint (hidden 32, 2 layers; seeded weights, the port's
+    writer) whose vocabulary passes 65,535 rows, with a Unigram
+    tokenizer.json written here (no tokenizers on the card's machine): the
+    ``words`` as whole pieces at ids 70,000 and up, letters and digits
+    below, fillers between."""
+    import json
+    import os
+    from dataclasses import replace
+
+    from leann_torch.embeddings import encoder as te
+
+    vocab = [[p, 0.0] for p in ("<s>", "<pad>", "</s>", "<unk>")] + [["▁", -10.0]]
+    vocab += [[c, -11.0] for c in "abcdefghijklmnopqrstuvwxyz0123456789"]
+    vocab += [[f"▁f{i}", -12.0] for i in range(70_000 - len(vocab))] + [["▁" + w, -8.0] for w in words]
+    cfg = replace(te.EncoderConfig(), name="int32-tiny", arch="bert", vocab_size=len(vocab), dim=32, n_layers=2,
+                  n_heads=4, mlp_dim=64, max_len=64)
+    te.save_hf_weights(te.init_params(cfg), cfg, path)
+    template = [{"SpecialToken": {"id": "<s>", "type_id": 0}}, {"Sequence": {"id": "A", "type_id": 0}},
+                {"SpecialToken": {"id": "</s>", "type_id": 0}}]
+    spec = {"version": "1.0", "added_tokens": [{"id": i, "content": p, "special": True, "normalized": False}
+                                               for i, p in enumerate(("<s>", "<pad>", "</s>", "<unk>"))],
+            "normalizer": {"type": "Sequence", "normalizers": [{"type": "Nmt"}, {"type": "NFKC"}]},
+            "pre_tokenizer": {"type": "Metaspace", "replacement": "▁", "prepend_scheme": "always"},
+            "post_processor": {"type": "TemplateProcessing", "single": template, "pair": [], "special_tokens": {
+                "<s>": {"id": "<s>", "ids": [0], "tokens": ["<s>"]},
+                "</s>": {"id": "</s>", "ids": [2], "tokens": ["</s>"]}}},
+            "model": {"type": "Unigram", "unk_id": 3, "vocab": vocab, "byte_fallback": False}}
+    with open(os.path.join(path, "tokenizer.json"), "w", encoding="utf-8") as f:
+        json.dump(spec, f)
+    with open(os.path.join(path, "tokenizer_config.json"), "w") as f:
+        json.dump({"tokenizer_class": "XLMRobertaTokenizer", "pad_token": "<pad>"}, f)
+    return path
+
+
+@pytest.mark.parametrize("backend", ["hnsw", "diskann"])
+def test_int32_token_store_on_the_card_matches_the_cpu(cuda, tmp_path, backend):
+    """A vocabulary above 65,535 rows makes the token store int32: the hnsw
+    recompute search and the diskann rerank, with the store on the card and
+    (diskann) on the host, give the labels of the same searches on the
+    CPU."""
+    from leann_torch import LeannBuilder, LeannSearcher
+    from leann_torch.embeddings.tokenizer_json import JsonTokenizer
+    from leann_torch.storage import load_token_cache
+
+    rng = np.random.default_rng(13)
+    words = [f"w{i}" for i in range(300)]
+    path = _int32_checkpoint(str(tmp_path / "ckpt"), words)
+    texts = [f"doc{i} " + " ".join(rng.choice(words, 14)) for i in range(600)]
+    kw = {"diskann": dict(graph_degree=16, num_partitions=1), "hnsw": dict(M=8)}[backend]
+    b = LeannBuilder(backend_name=backend, embedding_model=path, max_length=32, device="cuda", **kw)
+    for t in texts:
+        b.add_text(t)
+    prefix = str(tmp_path / "x.leann")
+    b.build_index(prefix)
+    tok, lengths = load_token_cache(prefix)
+    assert tok.dtype == np.int32 and int(np.asarray(tok).max()) >= 70_000 and lengths.min() > 2
+    queries = [" ".join(t.split()[:8]) for t in texts[:32]]
+    search = dict(top_k=3, complexity=32, beam_width=4)
+    cpu = [[r.id for r in row] for row in LeannSearcher(prefix, device="cpu").search(queries, **search)]
+    residencies = ("device", "host") if backend == "diskann" else (None,)
+    for residency in residencies:
+        s = LeannSearcher(prefix, device="cuda", **({"token_residency": residency} if residency else {}))
+        assert isinstance(s.backend.get_encoder().tokenizer, JsonTokenizer)
+        if residency:
+            assert (s.backend.tokens_host is not None) == (residency == "host")
+        got = [[r.id for r in row] for row in s.search(queries, **search)]
+        assert got == cpu, residency

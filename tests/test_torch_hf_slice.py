@@ -62,8 +62,11 @@ def _build(pkg, backend, ckpt, chunks, prefix):
     return b
 
 
-@pytest.fixture(scope="module")
-def hf_indexes(tmp_path_factory):
+@pytest.fixture(scope="module", params=["tokenizer.json", "vocab.txt"])
+def hf_indexes(request, tmp_path_factory):
+    """Both packages' indexes over the checkpoint, by each tokenizer route:
+    the saved tokenizer.json first, as AutoTokenizer, or vocab.txt alone
+    (tokenizer.json removed from the directory)."""
     import leann_torch
     import leann_tpu
     from leann_torch.embeddings import encoder as te
@@ -72,6 +75,8 @@ def hf_indexes(tmp_path_factory):
 
     d = tmp_path_factory.mktemp("hf_slice")
     ckpt = _checkpoint(str(d / "bert"))
+    if request.param == "vocab.txt":
+        os.remove(os.path.join(ckpt, "tokenizer.json"))
     rng = np.random.default_rng(0)
     chunks = synth_corpus(400, rng)
     queries = [" ".join(chunks[i].split()[:12]) for i in rng.choice(len(chunks), 32, replace=False)]
@@ -86,7 +91,8 @@ def hf_indexes(tmp_path_factory):
     te._ENCODER_CACHE.clear()
     je._ENCODER_CACHE.clear()
     truth = _ids(leann_torch.LeannSearcher(paths["flat"], device="cpu").search(queries, top_k=3))
-    return dict(paths=paths, ckpt=ckpt, chunks=chunks, queries=queries, truth=truth, phases=builder.phase_seconds)
+    return dict(paths=paths, ckpt=ckpt, chunks=chunks, queries=queries, truth=truth, phases=builder.phase_seconds,
+                route=request.param)
 
 
 def test_build_loads_the_checkpoint_and_calibrates(hf_indexes):
@@ -97,7 +103,8 @@ def test_build_loads_the_checkpoint_and_calibrates(hf_indexes):
     for k in ("torch", "jax", "flat", "jax_flat"):
         assert os.path.exists(p[k] + ".calib.npz"), k
     enc = get_encoder(hf_indexes["ckpt"], max_length=64, device="cpu")
-    assert enc.loaded_hf and type(enc.tokenizer).__name__ == "HFTokenizer"
+    want_tok = {"tokenizer.json": "JsonTokenizer", "vocab.txt": "HFTokenizer"}[hf_indexes["route"]]
+    assert enc.loaded_hf and type(enc.tokenizer).__name__ == want_tok
     tok, lengths = load_token_cache(p["torch"])
     assert not (tok == enc.tokenizer.unk_id).any() and lengths.min() > 2
     assert hf_indexes["phases"]["calibrate"] > 0

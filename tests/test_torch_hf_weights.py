@@ -182,16 +182,21 @@ def test_jax_writer_output_loads_in_port(tiny_bert, tmp_path):
     _assert_same_tree(te.load_hf_weights(out)[0], je.load_hf_weights(out)[0])
 
 
-def test_encoder_from_dir_matches_jax(tiny_bert, tmp_path):
-    """TorchEncoder(<dir>) takes the checkpoint's weights and the WordPiece
-    over its vocab.txt; the same embeddings as JaxEncoder(<dir>) within the
-    bf16 forward's tolerance (tests/test_torch_encoder.py)."""
+@pytest.mark.parametrize("route", ["tokenizer.json", "vocab.txt"])
+def test_encoder_from_dir_matches_jax(tiny_bert, tmp_path, route):
+    """TorchEncoder(<dir>) takes the checkpoint's weights and its saved
+    WordPiece, by either route: tokenizer.json first, as AutoTokenizer, or
+    vocab.txt alone (the directory's tokenizer.json removed); the same
+    embeddings as JaxEncoder(<dir>) within the bf16 forward's tolerance
+    (tests/test_torch_encoder.py)."""
     path = _with_vocab(_bert(tmp_path / "with-vocab")[0])
+    if route == "vocab.txt":
+        os.remove(os.path.join(path, "tokenizer.json"))
     texts = ["the cat sat on the mat", "dogs ran", "the big red star!", "moon, sun. tree"]
     want = je.JaxEncoder(path, max_length=16)
     got = te.TorchEncoder(path, max_length=16, device="cpu")
     assert got.loaded_hf and want.loaded_hf and got.needs_corpus_calibration
-    assert type(got.tokenizer).__name__ == "HFTokenizer"
+    assert type(got.tokenizer).__name__ == {"tokenizer.json": "JsonTokenizer", "vocab.txt": "HFTokenizer"}[route]
     assert _same_cfg(got.cfg, want.cfg)
     np.testing.assert_allclose(got.params["out_center"].numpy(), np.asarray(want.params["out_center"]),
                                rtol=0, atol=1e-5)

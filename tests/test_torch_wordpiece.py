@@ -8,6 +8,7 @@ from import on the port's side.
 """
 
 import builtins
+import json
 import os
 import sys
 
@@ -117,19 +118,24 @@ def no_transformers(monkeypatch):
 
 def test_routing_without_transformers(uncased, no_transformers, tmp_path):
     """The routing cases with transformers blocked: a directory with
-    vocab.txt -> WordPiece (cached), also vocab.txt alone (no
-    tokenizer_config.json: uncased, accents stripped); no tokenizer files ->
-    the hash tokenizer at the given vocab; tokenizer.json or a sentencepiece
-    model without vocab.txt, or another tokenizer class -> not ported; a
-    vocab.txt that cannot be read, or one without the special tokens ->
-    raises."""
+    tokenizer.json -> the port's reader of it, first (cached; the saved BERT
+    directory holds vocab.txt too, and its WordPiece gives the same ids), and
+    a Unigram, BPE or WordPiece tokenizer.json alone; vocab.txt alone ->
+    WordPiece (no tokenizer_config.json: uncased, accents stripped); no
+    tokenizer files -> the hash tokenizer at the given vocab; a
+    sentencepiece model or vocab.json + merges.txt alone, a tokenizer.json
+    with no model, or another tokenizer class -> not ported; a vocab.txt
+    that cannot be read, or one without the special tokens -> raises."""
+    from leann_torch.embeddings.tokenizer_json import JsonTokenizer
+
     path, hf = uncased
     with pytest.raises(ImportError):
         import transformers as _  # noqa: F401
     tok = tt.get_tokenizer(path, vocab_size=len(VOCAB), max_length=16)
-    assert isinstance(tok, tt.HFTokenizer) and tok.vocab_size == len(VOCAB)
+    assert isinstance(tok, JsonTokenizer) and tok.vocab_size == len(VOCAB)
     assert tt.get_tokenizer(path, vocab_size=len(VOCAB), max_length=16) is tok
     _check(tok, hf, CASES, 16)
+    _check(tt.HFTokenizer(path), hf, CASES, 16)
 
     def mkdir(name, **files):
         d = tmp_path / name
@@ -147,9 +153,34 @@ def test_routing_without_transformers(uncased, no_transformers, tmp_path):
     assert isinstance(hashed, tt.HashTokenizer) and hashed.vocab_size == 120
     assert isinstance(tt.get_tokenizer("hash-minilm"), tt.HashTokenizer)
     for d in (mkdir("sp", spiece__model=b"\x00"), mkdir("tj", tokenizer__json="{}"),
-              mkdir("roberta", vocab__txt=vocab_text, tokenizer_config__json='{"tokenizer_class": "RobertaTokenizer"}')):
+              mkdir("roberta", vocab__txt=vocab_text, tokenizer_config__json='{"tokenizer_class": "RobertaTokenizer"}'),
+              mkdir("bpe_files", vocab__json='{"a": 0}', merges__txt="#version: 0.2\n")):
         with pytest.raises(NotImplementedError, match="not ported"):
             tt.get_tokenizer(d)
+
+    def tokenizer_json(model, pre_tokenizer=None, post_processor=None):
+        return json.dumps({"version": "1.0", "added_tokens": [], "normalizer": None, "pre_tokenizer": pre_tokenizer,
+                           "post_processor": post_processor, "model": model})
+
+    config = json.dumps({"tokenizer_class": "PreTrainedTokenizerFast", "pad_token": "<pad>"})
+    unigram = {"type": "Unigram", "unk_id": 1, "vocab": [["<pad>", 0.0], ["<unk>", 0.0], ["\u2581", -2.0],
+                                                          ["\u2581ab", -1.0], ["c", -3.0]]}
+    bpe = {"type": "BPE", "vocab": {"<pad>": 0, "a": 1, "b": 2, "c": 3, "ab": 4, "abc": 5},
+           "merges": [["a", "b"], "ab c"]}
+    wp = {"type": "WordPiece", "unk_token": "[UNK]", "continuing_subword_prefix": "##",
+          "max_input_chars_per_word": 100, "vocab": {"[PAD]": 0, "[UNK]": 1, "ab": 2, "##c": 3}}
+    routes = {
+        "unigram": (unigram, {"type": "Metaspace", "replacement": "\u2581", "prepend_scheme": "always"}, [3, 4, 1]),
+        "bpe": (bpe, {"type": "WhitespaceSplit"}, [5, 4]),
+        "wordpiece": (wp, {"type": "BertPreTokenizer"}, [2, 3, 2]),
+    }
+    for name, (model, pre, want) in routes.items():
+        d = mkdir(f"json_{name}", tokenizer__json=tokenizer_json(model, pre),
+                  tokenizer_config__json=config.replace("<pad>", "[PAD]") if name == "wordpiece" else config)
+        tj = tt.get_tokenizer(d, max_length=6)
+        assert isinstance(tj, JsonTokenizer) and tj.pad_id == 0
+        ids, mask = tj.encode(["abcd", "abc ab", "abc ab"][list(routes).index(name)])
+        assert ids.tolist() == want + [0] * (6 - len(want)) and mask.tolist() == [1] * len(want) + [0] * (6 - len(want))
     with pytest.raises(UnicodeDecodeError):
         tt.get_tokenizer(mkdir("bad_utf8", vocab__txt=b"[PAD]\n\xff\xfe\n"))
     (tmp_path / "dir_vocab" / "vocab.txt").mkdir(parents=True)
@@ -161,8 +192,10 @@ def test_routing_without_transformers(uncased, no_transformers, tmp_path):
 
 def test_memo_is_bounded(tmp_path, monkeypatch):
     path = _vocab_dir(str(tmp_path / "v"), do_lower_case=True)
+    from leann_torch.embeddings import tokenizer_json as tj
+
     tok = tt.HFTokenizer(path)
-    monkeypatch.setattr(tt, "_MEMO_WORDS", 8)
+    monkeypatch.setattr(tj, "_MEMO_WORDS", 8)
     want = [tok.token_ids(f"cat{i} run{i}ning") for i in range(40)]
     assert len(tok._memo) <= 8
     fresh = tt.HFTokenizer(path)
