@@ -161,7 +161,8 @@ class HFTokenizer(JsonTokenizer):
         if cls_name is not None and cls_name not in _WORDPIECE_CLASSES:
             from ..backends.common import not_ported
 
-            raise not_ported(f"the tokenizer class {cls_name!r} of {path}", "only BERT WordPiece is ported")
+            raise not_ported(f"the tokenizer class {cls_name!r} of {path} (only BERT WordPiece reads vocab.txt)",
+                             "ROADMAP.md §A #4")
         with open(os.path.join(path, "vocab.txt"), encoding="utf-8") as fh:
             tokens = [line.rstrip("\n") for line in fh]
         spec = bert_pipeline(tokens, cfg, os.path.join(path, "vocab.txt"))

@@ -54,11 +54,13 @@ PRUNE_DISPATCH_ROWS = 1 << 17
 # the bf16 slab the card holds at a time. 24 GiB is 33.5M columns at
 # D = 384, so the band just past exact_knn_max_n (~30M rows there) takes
 # two shards and leaves the card room for the query chunk, its running
-# state and the kernel's lists.
+# state and the kernel's lists. LEANN_EXACT_SHARD_BYTES overrides it.
 EXACT_SHARD_BYTES = 24 << 30
 # query rows per (chunk x shard) launch: as KNN_ROWS_PER_LAUNCH
+# (LEANN_EXACT_QCHUNK overrides it)
 EXACT_QCHUNK = 1 << 17
 # seconds between mid-shard checkpoints of the running state
+# (LEANN_EXACT_QCKPT_SECS overrides it)
 QCKPT_SECS = 300.0
 # rows per block of the host-side medoid pass
 HOST_BLOCK_ROWS = 1 << 20
@@ -83,6 +85,16 @@ def _prune_pq_m(d: int) -> int:
         if 3 <= ds <= 16 and abs(ds - 6) < best_gap:
             best, best_gap = m, abs(ds - 6)
     return best
+
+
+def env_override(name: str, default: "int | float") -> "int | float":
+    """The environment variable ``name`` as ``default``'s type where it is
+    set, else ``default``: the JAX package's overrides of the build's
+    sizes (LEANN_EXACT_SHARD_BYTES, LEANN_EXACT_QCHUNK,
+    LEANN_EXACT_QCKPT_SECS, LEANN_PRUNE_EBF_MAX_BYTES), read when the build
+    runs, so a variable set before it takes effect."""
+    value = os.environ.get(name)
+    return default if value is None else type(default)(value)
 
 
 def _bucket_rows(n: int, block: int) -> int:
@@ -118,12 +130,14 @@ def prune_ebf_max_bytes(device: "str | torch.device") -> int:
     """Largest bf16 corpus matrix the prune keeps on ``device``: half of the
     card's free memory (re-derived from the card, not the TPU's 10 GB).
     Above it the prune decodes candidates from PQ codes. The CPU has no
-    such cap."""
+    such cap. LEANN_PRUNE_EBF_MAX_BYTES, where set, is the cap on either."""
     dev = torch.device(device)
     if dev.type != "cuda":
-        return 1 << 62
-    free, _ = torch.cuda.mem_get_info(dev)
-    return int(free // 2)
+        cap = 1 << 62
+    else:
+        free, _ = torch.cuda.mem_get_info(dev)
+        cap = int(free // 2)
+    return env_override("LEANN_PRUNE_EBF_MAX_BYTES", cap)
 
 
 def exact_knn(emb: np.ndarray, k: int,
@@ -198,9 +212,13 @@ def exact_knn_sharded(
     :func:`exact_knn`'s: both take the norms and the bf16 rows from
     ``upload_panel_inputs``, so a pair's distance is bit-identical.
 
-    ``query_block``, ``tile`` and ``approx_recall`` are accepted for the JAX
-    package's signature and ignored: the port is always exact, and its grid
-    comes from ``tile_plan.plan_launch``.
+    ``tile`` and ``approx_recall`` are accepted for the JAX package's
+    signature and ignored: the port is always exact, and its grid comes
+    from ``tile_plan.plan_launch``. ``query_block`` sets only the state
+    files' row count (below). ``shard_bytes``, ``qchunk`` and the
+    checkpoint cadence default to ``EXACT_SHARD_BYTES``, ``EXACT_QCHUNK``
+    and ``QCKPT_SECS``, or to LEANN_EXACT_SHARD_BYTES, LEANN_EXACT_QCHUNK
+    and LEANN_EXACT_QCKPT_SECS where those are set (:func:`env_override`).
 
     Chunk i + 1 is launched before chunk i's state is copied back (a
     depth-1 pipeline), so the host's write-back hides under the card's
@@ -208,18 +226,27 @@ def exact_knn_sharded(
     is flushed after every shard and every ``QCKPT_SECS`` within one; a
     killed run resumes at the last durable (shard, chunk), after purging
     the unfinished shard's ids from the rows not yet durable. The state
-    files go at the end. A state is resumed only at its own geometry
-    (``rows_per_shard``, ``qchunk``), as in the JAX package: one the JAX
-    package wrote resumes here when ``shard_bytes`` and ``qchunk`` give its
-    numbers (its shards are whole tiles, so ``shard_bytes = rows_per_shard
-    * 2 * D`` does), else it is discarded with a warning. This package's
-    state has N rows where the JAX package wants its padded row count, so
-    the JAX package does not resume it."""
+    files go at the end.
+
+    The state files are the JAX package's: ``exknn_state.json`` (the
+    corpus key, shards and chunks done, ``rows_per_shard``, ``qchunk``)
+    and ``exknn_state_{d,i}.npy`` of ``_bucket_rows(N, qb)`` rows, ``qb =
+    max(8, min(query_block, 1024))``, its padded count; the rows past N
+    hold INF / -1 and are never read. A state is resumed only at its own
+    geometry (``rows_per_shard``, ``qchunk``): one the JAX package wrote
+    resumes here when ``shard_bytes`` and ``qchunk`` give its numbers (its
+    shards are whole tiles, so ``shard_bytes = rows_per_shard * 2 * D``
+    does), else it is discarded with a warning; one this function wrote
+    resumes in the JAX package at the same ``shard_bytes`` and ``qchunk`` (a
+    multiple of qb) when its ``query_block`` is the one passed here and its
+    ``tile`` divides the shard's rows."""
     dev = resolve_device(device)
     n, d = emb.shape
-    rows_per_shard = _rows_per_shard(shard_bytes or EXACT_SHARD_BYTES, d)
+    rows_per_shard = _rows_per_shard(shard_bytes or env_override("LEANN_EXACT_SHARD_BYTES", EXACT_SHARD_BYTES), d)
     n_shards = (n + rows_per_shard - 1) // rows_per_shard
-    qchunk = max(1, int(qchunk or EXACT_QCHUNK))
+    qchunk = max(1, int(qchunk or env_override("LEANN_EXACT_QCHUNK", EXACT_QCHUNK)))
+    qckpt_secs = env_override("LEANN_EXACT_QCKPT_SECS", QCKPT_SECS)
+    np_total = _bucket_rows(n, max(8, min(query_block, 1024)))  # the JAX package's state rows
 
     sd_path = os.path.join(checkpoint_dir, "exknn_state_d.npy") if checkpoint_dir else ""
     si_path = os.path.join(checkpoint_dir, "exknn_state_i.npy") if checkpoint_dir else ""
@@ -242,7 +269,7 @@ def exact_knn_sharded(
             if m.get("key") == key and geom_ok and (m_sh > 0 or m_q > 0) and m_sh <= n_shards:
                 run_d = np.lib.format.open_memmap(sd_path, mode="r+")
                 run_i = np.lib.format.open_memmap(si_path, mode="r+")
-                # the JAX package pads its state to its query blocks: rows past n are unused
+                # the state is padded to the JAX package's query blocks: rows past n are unused
                 if run_d.shape[0] >= n and run_d.shape[1:] == (k,) and run_i.shape == run_d.shape:
                     shard_done, q_resume = m_sh, m_q
                     logger.info("exact_knn_sharded: resumed at shard %d/%d qchunk %d",
@@ -281,8 +308,8 @@ def exact_knn_sharded(
             for path in (sd_path, si_path):
                 if os.path.exists(path):
                     os.remove(path)
-            run_d = np.lib.format.open_memmap(sd_path, mode="w+", dtype=np.float32, shape=(n, k))
-            run_i = np.lib.format.open_memmap(si_path, mode="w+", dtype=np.int32, shape=(n, k))
+            run_d = np.lib.format.open_memmap(sd_path, mode="w+", dtype=np.float32, shape=(np_total, k))
+            run_i = np.lib.format.open_memmap(si_path, mode="w+", dtype=np.int32, shape=(np_total, k))
         else:
             run_d = np.empty((n, k), np.float32)
             run_i = np.empty((n, k), np.int32)
@@ -313,7 +340,7 @@ def exact_knn_sharded(
                 ev.synchronize()
             run_d[pqs:pqe] = bufs[0].numpy()
             run_i[pqs:pqe] = bufs[1].numpy()
-            if checkpoint_dir and time.time() - t_ckpt > QCKPT_SECS:
+            if checkpoint_dir and time.time() - t_ckpt > qckpt_secs:
                 save_meta(sh, pci + 1)  # the written-back chunks are the resume point
                 t_ckpt = time.time()
 
@@ -372,7 +399,7 @@ def exact_knn_rows(
     qrows, qnorms = upload_panel_inputs(np.asarray(emb[rows]), dev)
     run_d = torch.full((s_n, kk), INF, dtype=torch.float32, device=dev)
     run_i = torch.full((s_n, kk), -1, dtype=torch.int32, device=dev)
-    rows_per_shard = _rows_per_shard(shard_bytes or EXACT_SHARD_BYTES, d)
+    rows_per_shard = _rows_per_shard(shard_bytes or env_override("LEANN_EXACT_SHARD_BYTES", EXACT_SHARD_BYTES), d)
     for cs in range(0, n, rows_per_shard):
         ce = min(cs + rows_per_shard, n)
         cshard, cnorms = upload_panel_inputs(emb, dev, cs, ce)

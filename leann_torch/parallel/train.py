@@ -73,10 +73,15 @@ class ContrastiveTrainer:
     every leaf, the update optax's ``adamw`` makes. ``params`` stays the
     encoder's tree of f32 tensors, so ``save_hf_weights(trainer.params, cfg,
     path)`` writes a checkpoint an index can be built from. ``device``
-    defaults to cuda and raises without it."""
+    defaults to cuda and raises without it. ``mesh`` stands second, as in
+    the JAX package's signature; only ``None`` (one device) is ported."""
 
-    def __init__(self, cfg: EncoderConfig, learning_rate: float = 2e-5, weight_decay: float = 0.01,
+    def __init__(self, cfg: EncoderConfig, mesh=None, learning_rate: float = 2e-5, weight_decay: float = 0.01,
                  temperature: float = 0.05, params: Optional[Dict] = None, device: "str | torch.device" = "cuda"):
+        if mesh is not None:
+            from ..backends.common import not_ported
+
+            raise not_ported("the trainer's (dp, tp) mesh", "ROADMAP.md §A #5")
         self.device = resolve_device(device)
         self.cfg = cfg
         self.temperature = temperature

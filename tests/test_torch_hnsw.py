@@ -1,8 +1,9 @@
 """leann_torch's HNSW backend and recompute traversal against the JAX
 package's on the same inputs (CPU): the PQ-screened ``_traversal_dists``
 for each strategy, search on one JAX-built index, the JAX package's own
-behavioural checks run on the port, batch lanes under the recompute
-traversal, and the builder's on-disk payload. Each side encodes with its own
+behavioural checks run on the port, and HnswBuilder's on-disk payload
+(batch lanes under the recompute traversal are in test_torch_hnsw_lanes.py,
+so that a second worker takes them). Each side encodes with its own
 identically seeded hash-tiny weights."""
 
 import dataclasses
@@ -186,26 +187,7 @@ def test_compact_index_refuses_what_it_cannot_do(built):
         ts._make_cfg(3, 32, 4, None, True, "global", 0)
 
 
-# (d) -----------------------------------------------------------------------
-@pytest.mark.parametrize("strategy", STRATEGIES)
-def test_batch_lanes_freeze_independently_under_recompute(built, strategy):
-    """A converged lane changes nothing while the others run on: a batch
-    gives each query the labels, distances, steps and n_exact it gets alone
-    (the proportional budget is per lane)."""
-    from leann_torch.ops.beam_search import beam_search_batch
-
-    prefix, _, queries = built
-    _, ts = _searchers(prefix)
-    q = torch.from_numpy(_unit(ts._encoder().encode(queries[:8])))
-    cfg, params = ts._make_cfg(3, 32, 4, 0.5, True, strategy, 0)
-    g = ts._graph_data()
-    ids_b, d_b, steps_b, exact_b = beam_search_batch(q, g, cfg, params)
-    assert len(set(steps_b.tolist())) > 1
-    for i in range(8):
-        ids_1, d_1, steps_1, exact_1 = beam_search_batch(q[i : i + 1], g, cfg, params)
-        assert ids_1[0].tolist() == ids_b[i].tolist()
-        np.testing.assert_allclose(d_1[0].numpy(), d_b[i].numpy(), rtol=1e-5, atol=1e-6)
-        assert (int(steps_1[0]), int(exact_1[0])) == (int(steps_b[i]), int(exact_b[i]))
+# (d) batch lanes under the recompute traversal: tests/test_torch_hnsw_lanes.py
 
 
 # (e) -----------------------------------------------------------------------
