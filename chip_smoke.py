@@ -76,11 +76,11 @@ final line):
      step counts (its median), so that some lanes keep their first pass's
      results and the others run again; ms per query and escalated lanes
      for each.
-  8. the index lifecycle, on phase 4 and 5's corpus and queries: (a) 256
+  8. the index lifecycle, on phase 4 and 5's corpus and queries: (a) 128
      new chunks inserted by LeannBuilder.from_index -> update_index
-     (insert_batch_size=128: two batches) into a copy of phase 5's hnsw
+     (insert_batch_size=64: two batches) into a copy of phase 5's hnsw
      index and of phase 4's flat oracle; the updated flat index against a
-     flat index built whole over the 100,256 chunks (same labels, scores
+     flat index built whole over the 100,128 chunks (same labels, scores
      within 1e-6) on the 64 old queries and 64 new ones (12-word prefixes
      of inserted chunks), and hnsw recall@3 on both sets against the
      updated oracle (floor 0.80); update seconds, rows repaired, the entry
@@ -122,7 +122,7 @@ final line):
      diskann and phase 5's hnsw searches under "highest", then under "high",
      which allows TF32: identical labels and scores; "high" read back after
      a BatchedSearcher batch); then ContrastiveTrainer on phase 9's
-     checkpoint, 100 steps of 256 (12-word prefix -> chunk) pairs at lr 1e-4
+     checkpoint, 50 steps of 256 (12-word prefix -> chunk) pairs at lr 1e-4
      (queries T = 32, chunks T = 128, through the checkpoint's WordPiece;
      the 64 eval chunks left out): the loss at the first and last step (it
      must fall), warm ms per step, tokens per second, peak memory, one
@@ -221,7 +221,30 @@ final line):
      seconds, build phase seconds, all-in bytes and ms per query (16
      queries, 64 on email's index), and times two kernel rows in one
      profile window: email's k-NN panel and its oracle's flat_topk.
- 14. the kernels line: per kernel, path and k its launches on that path
+ 14. the parallel layer (leann_torch/parallel) on the one card, as a mesh
+     of 4 gp shards of it: (a) sharded_build_graph over phase 4's matrix
+     (its 100,000 unit rows) at diskann's R = 32, C = 64: each of the 4 x 4 ring steps
+     one launch of the k-NN kernel's external entry and one of its merge
+     (counted), ring_knn's ids equal to phase 4's exact_knn on >= 0.9999 of
+     entries, recall@3 of the sharded graph (phase 4's codes, tokens and
+     entries, its 64 queries) within 0.02 of phase 4's graph's; shard 1's
+     step against shard 0's tile and its merge held against the plain
+     versions; (b) ShardedSearcher over phase 4's index, its device tensors
+     sliced into the shards: the pq traversal's label sets equal to the
+     one-card search's on >= 0.99 of rows, recall@3 at the searcher's
+     defaults within 0.02 of the one-card search's, ms per query of the
+     64-query batch, and a serving_mesh(2, 2) search equal to the gp = 2
+     search; (c) the normal entry points at gp = the card count:
+     LeannBuilder(hnsw, build_sharded=True) over the first 20,000 chunks,
+     LeannSearcher(sharded=True) against the unsharded searcher (recall@3
+     against a flat oracle within 0.02; sharded="auto" unsharded on one
+     card), its ring step held against the plain versions; (d)
+     ContrastiveTrainer on a (dp 2, tp 2) mesh against the one-device
+     trainer at hash-minilm's widths, 10 steps of 64 pairs from the same
+     seeded params: in f32 the losses within 1e-3 relative at every step,
+     in bf16 (4 steps) within 1e-3 at the first and 2e-3 at the others
+     (Adam turns rounding noise into other updates); ms per step of each.
+ 15. the kernels line: per kernel, path and k its launches on that path
      (each path's counts set to 0 just before it and read just after), its
      device time and call time, its plain version's and a library call's
      time at that path's shapes, and its bound on the card.
@@ -640,6 +663,7 @@ def phase_main_path(torch, workdir: str):
 
     def recording_exact_knn(*a, **kw):  # keeps the build's candidates for phase 7; launches nothing itself
         knn_seen["ids"], dists = real_exact_knn(*a, **kw)
+        knn_seen["graph_data"] = a[0]  # and the matrix it ran on (cosine: the unit rows), for phase 14
         return knn_seen["ids"], dists
 
     graph.exact_knn = recording_exact_knn
@@ -655,12 +679,7 @@ def phase_main_path(torch, workdir: str):
 
     searcher = LeannSearcher(prefix)
     kw = SEARCH_KW
-    searcher.search(queries, **kw)  # warm
-    torch.cuda.synchronize()
-    t = time.time()
-    got = searcher.search(queries, **kw)
-    torch.cuda.synchronize()
-    search_s = time.time() - t
+    got, ms_q = _timed_search(torch, searcher, queries, **kw)
     truth = LeannSearcher(oracle_prefix).search(queries, top_k=3)
     launches = {"flat_topk": flat_topk.launches, "knn_panel": knn_panel.launches}
     profile = search_profile(torch, lambda: searcher.search(queries, **kw))
@@ -672,7 +691,7 @@ def phase_main_path(torch, workdir: str):
     recall = float(np.mean([len({x.id for x in a} & {x.id for x in b}) / 3 for a, b in zip(got, truth)]))
     row = {"phase": "main_path", "n_chunks": len(chunks), "model": "hash-minilm", "backend": "diskann",
            "corpus_s": corpus_s, "build_s": build_phases, "flat_build_s": dict(oracle.phase_seconds),
-           "recall_at_3": recall, "search_ms_per_query": search_s * 1e3 / len(queries),
+           "recall_at_3": recall, "search_ms_per_query": ms_q,
            "all_in_bytes": index_all_in_bytes(prefix), "launches": launches,
            "peak_mem_gb": torch.cuda.max_memory_allocated() / 2**30}
     emit(row)
@@ -683,8 +702,9 @@ def phase_main_path(torch, workdir: str):
         if cnt < 1:
             fail(f"kernel {name} was not launched on the main path")
     main = {"chunks": chunks, "queries": queries, "q_idx": q_idx, "truth": truth, "prefix": prefix,
-            "oracle": oracle_prefix, "knn_ids": knn_seen["ids"], "recall": recall, "kw": kw, "got": got,
-            "search_ms_per_query": search_s * 1e3 / len(queries)}
+            "oracle": oracle_prefix, "knn_ids": knn_seen["ids"], "graph_data": knn_seen["graph_data"],
+            "recall": recall, "kw": kw, "got": got,
+            "search_ms_per_query": ms_q}
     return launches, main
 
 
@@ -709,12 +729,7 @@ def phase_hnsw_path(torch, workdir: str, main):
 
     searcher = LeannSearcher(prefix)
     kw = dict(top_k=3, complexity=64, beam_width=8)  # prune_ratio=None: the auto-prune applies at N >= 50,000
-    searcher.search(queries, **kw)  # warm
-    torch.cuda.synchronize()
-    t = time.time()
-    got = searcher.search(queries, **kw)
-    torch.cuda.synchronize()
-    search_s = time.time() - t
+    got, ms_q = _timed_search(torch, searcher, queries, **kw)
     launches = {"flat_topk": flat_topk.launches, "knn_panel": knn_panel.launches}
     profile = search_profile(torch, lambda: searcher.search(queries, **kw))
 
@@ -733,7 +748,7 @@ def phase_hnsw_path(torch, workdir: str, main):
     row = {"phase": "hnsw_path", "n_chunks": len(chunks), "model": "hash-minilm", "backend": "hnsw",
            "M": 32, "efConstruction": 128, "knn_k": 128, "prune_keep": cfg.prune_keep,
            "traversal": cfg.traversal, "build_s": build_phases, "recall_at_3": recall,
-           "search_ms_per_query": search_s * 1e3 / len(queries),
+           "search_ms_per_query": ms_q,
            "mean_steps": float(steps.float().mean()), "mean_n_exact": float(n_exact.float().mean()),
            "all_in_bytes": index_all_in_bytes(prefix), "launches": launches,
            "peak_mem_gb": torch.cuda.max_memory_allocated() / 2**30}
@@ -744,7 +759,7 @@ def phase_hnsw_path(torch, workdir: str, main):
     if launches["knn_panel"] < 1:
         fail("kernel knn_panel was not launched on the hnsw path")
     main.update(hnsw_prefix=prefix, hnsw_kw=kw, hnsw_recall=recall, hnsw_got=got,
-                hnsw_search_ms_per_query=search_s * 1e3 / len(queries))
+                hnsw_search_ms_per_query=ms_q)
     return launches
 
 
@@ -778,11 +793,6 @@ def timed_rows(torch, specs) -> list:
     return rows
 
 
-def timed_row(torch, kernel, p_ms: float, lib, n_bytes: float, flops: float, reps: int = 3) -> dict:
-    """:func:`timed_rows` of one kernel."""
-    return timed_rows(torch, [(kernel, p_ms, lib, n_bytes, flops, reps)])[0]
-
-
 def one_window(torch, checked: dict) -> dict:
     """{key: (row, spec)} of checks -> {key: row with its times}, every
     spec timed in one profile window (one idle pad for all)."""
@@ -791,10 +801,14 @@ def one_window(torch, checked: dict) -> dict:
     return {key: {**checked[key][0], **t} for key, t in zip(keys, times)}
 
 
-def ext_row(torch, kp, q, qn, c, cn, k, col_id0, q_id0, reps: int = 3) -> dict:
-    """knn_panel_ext at one (query rows x column slab) shape: checked against
-    its plain version on every query row, and timed."""
-    s_rows, d = q.shape
+def ext_check(torch, kp, q, qn, c, cn, k, col_id0, q_id0, reps: int = 3, d: int = 0):
+    """knn_panel_ext at one (query rows x column slab) shape, checked against
+    its plain version on every query row (one call of it timed) -> (row,
+    the spec :func:`timed_rows` times it by). ``d``: the rows' width before
+    the zero-padding to a multiple of 16, which the bound counts (0: the
+    padded width)."""
+    s_rows = q.shape[0]
+    d = d or q.shape[1]
     m = c.shape[0]
     ik, dk = kp.knn_panel_ext(q, qn, c, cn, k, m, col_id0, q_id0)
     (ip, dp), p_ms = timed_once(torch, lambda: kp.knn_panel_ext_plain(q, qn, c, cn, k, m, col_id0, q_id0))
@@ -806,24 +820,23 @@ def ext_row(torch, kp, q, qn, c, cn, k, col_id0, q_id0, reps: int = 3) -> dict:
         for s in range(0, s_rows, 1024):
             torch.topk(2.0 * (q[s : s + 1024] @ c.T).float() - cn, k)
 
-    row = timed_row(torch, lambda: kp.knn_panel_ext(q, qn, c, cn, k, m, col_id0, q_id0), p_ms, lib,
-                    s_rows * (d * 2 + 4) + m * (d * 2 + 4) + s_rows * k * 8, 2.0 * s_rows * m * d, reps)
-    return {"shape": [s_rows, m, d], "k": k, "overlap": ov, "max_abs_err": err, **row}
+    spec = (lambda: kp.knn_panel_ext(q, qn, c, cn, k, m, col_id0, q_id0), p_ms, lib,
+            s_rows * (d * 2 + 4) + m * (d * 2 + 4) + s_rows * k * 8, 2.0 * s_rows * m * d, reps)
+    return {"shape": [s_rows, m, d], "k": k, "overlap": ov, "max_abs_err": err}, spec
 
 
-def merge_row(torch, kp, vals, ids) -> dict:
-    """topk_merge of [S, L, k] lists: checked against its plain version
-    (identical), and timed."""
+def merge_check(torch, kp, vals, ids):
+    """topk_merge of [S, L, k] lists, checked against its plain version
+    (identical) -> (row, the spec :func:`timed_rows` times it by)."""
     s_rows, lists, k = vals.shape
     ik, dk = kp.topk_merge(vals, ids)
     ip, dp = kp.topk_merge_plain(vals, ids)
     torch.cuda.synchronize()
     same = bool(torch.equal(ik, ip) and torch.equal(dk, dp))
-    row = timed_row(torch, lambda: kp.topk_merge(vals, ids), cuda_ms(torch, lambda: kp.topk_merge_plain(vals, ids), 3),
-                    lambda: torch.topk(vals.reshape(s_rows, lists * k), k, largest=False),
-                    s_rows * lists * k * 8 + s_rows * k * 8, 0.0, reps=10)
-    return {"shape": [s_rows, lists, k], "k": k, "identical": same,
-            "max_abs_err": float((dk - dp).abs().max()), **row}
+    spec = (lambda: kp.topk_merge(vals, ids), cuda_ms(torch, lambda: kp.topk_merge_plain(vals, ids), 3),
+            lambda: torch.topk(vals.reshape(s_rows, lists * k), k, largest=False),
+            s_rows * lists * k * 8 + s_rows * k * 8, 0.0, 10)
+    return {"shape": [s_rows, lists, k], "k": k, "identical": same, "max_abs_err": float((dk - dp).abs().max())}, spec
 
 
 def _counts(counters) -> dict:
@@ -885,8 +898,9 @@ def phase_beyond_card_knn(torch, dev, seed: int, n: int = 1 << 20, rows_per_shar
         del pi, pd
     torch.cuda.empty_cache()
 
-    # each kernel at this phase's shapes, for the kernels line
-    kr = {}
+    # each kernel at this phase's shapes, for the kernels line, all timed in
+    # one profile window
+    checked = {}
     q_count = min(graph.KNN_ROWS_PER_LAUNCH, n)
     (ip, dp), p_ms = timed_once(torch, lambda: kp.knn_panel_plain(ebf, norms, k, 0, q_count, n))
     ov = overlap(torch.from_numpy(i1[:q_count]), ip)
@@ -897,29 +911,30 @@ def phase_beyond_card_knn(torch, dev, seed: int, n: int = 1 << 20, rows_per_shar
         for s in range(0, q_count, 1024):
             torch.topk(2.0 * (ebf[s : s + 1024] @ ebf.T).float() - norms, k)
 
-    kr[("knn_panel", "beyond_card_knn/one_pass")] = {
-        "shape": [q_count, n, d], "k": k, "overlap": ov, "max_abs_err": err,
-        **timed_row(torch, lambda: kp.knn_panel(ebf, norms, k, 0, q_count), p_ms, lib_one,
-                    n * (d * 2 + 4) + q_count * k * 8, 2.0 * q_count * n * d, reps=1)}
+    checked[("knn_panel", "beyond_card_knn/one_pass")] = (
+        {"shape": [q_count, n, d], "k": k, "overlap": ov, "max_abs_err": err},
+        (lambda: kp.knn_panel(ebf, norms, k, 0, q_count), p_ms, lib_one, n * (d * 2 + 4) + q_count * k * 8,
+         2.0 * q_count * n * d, 1))
     slab = slice(rows_per_shard, 2 * rows_per_shard)
     q, qn = ebf[:qchunk].clone(), norms[:qchunk].clone()  # a chunk uploaded apart from the slab
     c, cn = ebf[slab], norms[slab]
-    kr[("knn_panel_ext", "beyond_card_knn/sharded")] = ext_row(torch, kp, q, qn, c, cn, k, rows_per_shard, 0,
-                                                               reps=2)
+    checked[("knn_panel_ext", "beyond_card_knn/sharded")] = ext_check(torch, kp, q, qn, c, cn, k, rows_per_shard,
+                                                                      0, reps=2)
     run = kp.knn_panel_ext(q, qn, ebf[:rows_per_shard], norms[:rows_per_shard], k, rows_per_shard, 0, 0)
     new = kp.knn_panel_ext(q, qn, c, cn, k, rows_per_shard, rows_per_shard, 0)
-    kr[("topk_merge", "beyond_card_knn/sharded")] = merge_row(
+    checked[("topk_merge", "beyond_card_knn/sharded")] = merge_check(
         torch, kp, torch.stack([run[1], new[1]], 1), torch.stack([run[0], new[0]], 1))
-    del q, qn, run, new
     qs, qsn = ebf[rows_t], norms[rows_t]
     c0, cn0 = ebf[:rows_per_shard], norms[:rows_per_shard]
     for kk in (64, 512):
         path = f"beyond_card_knn/rows_k{kk}"
-        kr[("knn_panel_ext", path)] = ext_row(torch, kp, qs, qsn, c0, cn0, kk + 1, 0, -1)
+        checked[("knn_panel_ext", path)] = ext_check(torch, kp, qs, qsn, c0, cn0, kk + 1, 0, -1)
         a = kp.knn_panel_ext(qs, qsn, c0, cn0, kk + 1, rows_per_shard, 0, -1)
         b = kp.knn_panel_ext(qs, qsn, c, cn, kk + 1, rows_per_shard, rows_per_shard, -1)
-        kr[("topk_merge", path)] = merge_row(torch, kp, torch.stack([a[1], b[1]], 1), torch.stack([a[0], b[0]], 1))
-    del ebf, norms, qs, qsn, c, cn, c0, cn0
+        checked[("topk_merge", path)] = merge_check(torch, kp, torch.stack([a[1], b[1]], 1),
+                                                    torch.stack([a[0], b[0]], 1))
+    kr = one_window(torch, checked)
+    del checked, ebf, norms, q, qn, run, new, qs, qsn, c, cn, c0, cn0
     torch.cuda.empty_cache()
 
     row = {"phase": "beyond_card_knn", "n": n, "d": d, "k": k, "data_s": data_s,
@@ -1089,14 +1104,14 @@ def phase_beyond_card_path(torch, dev, workdir: str, main: dict, seed: int, max_
     e = rng.standard_normal((2 * shard_rows, 384), dtype=np.float32)
     e /= np.linalg.norm(e, axis=1, keepdims=True)
     ebf, norms = kp.upload_panel_inputs(e, dev)
-    kr = {}
     m = shard_rows
     q, qn = ebf[m : m + qchunk].clone(), norms[m : m + qchunk].clone()  # a chunk of the second shard
-    kr[("knn_panel_ext", "beyond_card_path")] = ext_row(torch, kp, q, qn, ebf[:m], norms[:m], 64, 0, m)
     a = kp.knn_panel_ext(q, qn, ebf[:m], norms[:m], 64, m, 0, m)
     b = kp.knn_panel_ext(q, qn, ebf[m:], norms[m:], 64, m, m, m)
-    kr[("topk_merge", "beyond_card_path")] = merge_row(torch, kp, torch.stack([a[1], b[1]], 1),
-                                                       torch.stack([a[0], b[0]], 1))
+    kr = one_window(torch, {
+        ("knn_panel_ext", "beyond_card_path"): ext_check(torch, kp, q, qn, ebf[:m], norms[:m], 64, 0, m),
+        ("topk_merge", "beyond_card_path"): merge_check(torch, kp, torch.stack([a[1], b[1]], 1),
+                                                        torch.stack([a[0], b[0]], 1))})
     del ebf, norms, q, qn, a, b
     torch.cuda.empty_cache()
 
@@ -1185,6 +1200,11 @@ def panel_check(torch, kp, ebf, norms, k: int, d: int):
             "self_hits": self_hits}, spec
 
 
+# phase 8's insert: two batches (256 chunks in two of 128 until phase 14
+# came)
+LIFECYCLE_NEW_CHUNKS, LIFECYCLE_BATCH = 128, 64
+
+
 def phase_lifecycle(torch, dev, workdir: str, main: dict):
     """Phase 8 -> (kernel rows by (kernel, path), launches by path)."""
     from leann_torch import LeannBuilder, LeannSearcher
@@ -1201,11 +1221,12 @@ def phase_lifecycle(torch, dev, workdir: str, main: dict):
     launches = {}
     n = len(chunks)
 
-    # (a) insert: 256 new chunks into copies of phase 5's hnsw index and of
-    # phase 4's flat oracle, in two batches of 128 (the second discovery
-    # searches a graph the first one grew)
-    new = synth_corpus(256, np.random.default_rng(8))
-    new_queries = [" ".join(new[i].split()[:12]) for i in np.random.default_rng(8).choice(256, 64, replace=False)]
+    # (a) insert: new chunks into copies of phase 5's hnsw index and of
+    # phase 4's flat oracle, in two batches (the second discovery searches a
+    # graph the first one grew)
+    new = synth_corpus(LIFECYCLE_NEW_CHUNKS, np.random.default_rng(8))
+    new_queries = [" ".join(new[i].split()[:12])
+                   for i in np.random.default_rng(8).choice(LIFECYCLE_NEW_CHUNKS, 64, replace=False)]
     hnsw = _copy_index(main["hnsw_prefix"], os.path.join(workdir, "lc_hnsw"))
     rows_before = unpack_neighbors(np.load(hnsw + ".hnsw.npz"))
     pool_before = int(np.load(hnsw + ".hnsw.npz")["entries"].shape[0])
@@ -1216,7 +1237,7 @@ def phase_lifecycle(torch, dev, workdir: str, main: dict):
         u.add_text(c)
     torch.cuda.synchronize()
     t = time.time()
-    u.update_index(hnsw, insert_batch_size=128)
+    u.update_index(hnsw, insert_batch_size=LIFECYCLE_BATCH)
     torch.cuda.synchronize()
     hnsw_update_s = time.time() - t
     launches["hnsw_update"] = _counts(counters)
@@ -1324,7 +1345,7 @@ def phase_lifecycle(torch, dev, workdir: str, main: dict):
     del ebf_d, norms_d, ebf_h, norms_h
     torch.cuda.empty_cache()
 
-    row = {"phase": "lifecycle", "n_chunks": n, "n_inserted": len(new), "insert_batch_size": 128,
+    row = {"phase": "lifecycle", "n_chunks": n, "n_inserted": len(new), "insert_batch_size": LIFECYCLE_BATCH,
            "hnsw_update": hnsw_stats, "hnsw_recall_at_3": hnsw_recall,
            "flat_update": {"update_s": flat_update_s, "same_labels": flat_same, "max_score_diff": flat_err,
                            "whole_build_s": whole_build},
@@ -1619,8 +1640,9 @@ def oracle_check(torch, dev, oracle_searcher, queries, k: int = 3, q=None):
             "overlap": overlap(ik, ip), "max_abs_err": float((dk - dp).abs().max())}, spec
 
 # phase 10: benchmarks/train_encoder.py:65-67's batch and learning rate; its
-# 800 steps cut to 100 for the smoke's time (200 until phase 12 came)
-TRAIN_STEPS, TRAIN_BATCH, TRAIN_LR = 100, 256, 1e-4
+# 800 steps cut to 50 for the smoke's time (200 until phase 12 came, 100
+# until phase 14)
+TRAIN_STEPS, TRAIN_BATCH, TRAIN_LR = 50, 256, 1e-4
 TRAIN_Q_LEN, TRAIN_D_LEN = 32, 128
 
 
@@ -1756,7 +1778,7 @@ def phase_train(torch, dev, workdir: str, main: dict, ckpt_state: dict):
            "all_in_bytes": index_all_in_bytes(built["prefix"]), "launches": launches,
            "kernels": {f"{name}@{path}": {key: v for key, v in r.items() if key != "kernel_parts_ms"}
                        for (name, path), r in kr.items()},
-           "reduced": "800 steps (benchmarks/train_encoder.py) cut to 200 for the smoke's time"}
+           "reduced": f"800 steps (benchmarks/train_encoder.py) cut to {TRAIN_STEPS} for the smoke's time"}
     emit(row)
     emit({"phase": "train_step_profile", **profile})
     if not (np.isfinite(losses).all() and losses[-1] < losses[0]):
@@ -3012,6 +3034,259 @@ def phase_apps(torch, dev, workdir: str, docs: str, sentences: list):
     return kr, launches
 
 
+# phase 14: the parallel layer on one card, as 4 gp shards of it (a mesh
+# may hold one device several times), over phase 4's chunks and index
+PARALLEL_SHARDS = 4
+PARALLEL_ENTRY_CHUNKS = 20_000  # the normal entry points' hnsw build, at gp = the card count
+PARALLEL_ENTRY_KW = dict(top_k=3, complexity=32, beam_width=4)
+PARALLEL_TRAIN_STEPS, PARALLEL_TRAIN_BATCH = 10, 64
+PARALLEL_BF16_STEPS = 4
+# the (2, 2) trainer's loss against the one-device trainer's, relative: f32
+# at every step; bf16 at its first step (the forward alone), then, after
+# updates, at twice the largest difference the card gave in runs of this
+# phase (3.9e-4, 1.0e-3, 5.4e-4 at steps 2-4; bf16 rounding Adam turns
+# into other updates: 9.3e-3 by step 10)
+PARALLEL_LOSS_RTOL, PARALLEL_BF16_LATER_RTOL = 1e-3, 2e-3
+
+
+def _label_sets(labels, id_list) -> list:
+    return [{id_list[i] for i in row if i >= 0} for row in np.asarray(labels).tolist()]
+
+
+def _recall_sets(got: list, truth) -> float:
+    return float(np.mean([len(g & {r.id for r in t}) / len(t) for g, t in zip(got, truth)]))
+
+
+def phase_parallel(torch, dev, workdir: str, main: dict):
+    """Phase 14 -> (kernel rows by (kernel, path), launches by path)."""
+    import dataclasses
+
+    from leann_torch import LeannBuilder, LeannSearcher
+    from leann_torch.embeddings.encoder import MODEL_REGISTRY, get_encoder, init_params
+    from leann_torch.ops import knn_panel as kp
+    from leann_torch.ops.beam_search import beam_search_batch
+    from leann_torch.ops.flat_topk import flat_topk
+    from leann_torch.parallel import sharded_build as sb
+    from leann_torch.parallel.mesh import graph_mesh, make_mesh, serving_mesh
+    from leann_torch.parallel.sharded_search import ShardedSearcher
+    from leann_torch.parallel.train import ContrastiveTrainer
+
+    t_phase = t_part = time.time()
+    parts_s = {}
+    chunks, queries, truth = main["chunks"], main["queries"], main["truth"]
+    counters = (flat_topk, kp.knn_panel, kp.knn_panel_ext, kp.topk_merge)
+    launches, checked = {}, {}
+    gp = PARALLEL_SHARDS
+    mesh = graph_mesh(gp, [dev] * gp)
+    rings = []
+    real_ring = sb._ring_knn_placed
+
+    def recording_ring(ebf, norms, s, k, devs):  # keeps each ring's operands and lists; launches nothing itself
+        out = real_ring(ebf, norms, s, k, devs)
+        rings.append(dict(ebf=list(ebf), norms=list(norms), s=s, k=k, out=out))
+        return out
+
+    def ring_step_checks(ring, me: int, owner: int, d: int, path: str) -> None:
+        """Shard ``me``'s launch against the tile of ``owner`` and its merge
+        into the running lists, held against the plain versions."""
+        ebf, norms, s, k = ring["ebf"], ring["norms"], ring["s"], ring["k"]
+        checked[("knn_panel_ext", path)] = ext_check(torch, kp, ebf[me], norms[me], ebf[owner], norms[owner], k,
+                                                     owner * s, me * s, d=d)
+        new_i, new_d = kp.knn_panel_ext(ebf[me], norms[me], ebf[owner], norms[owner], k, ebf[owner].shape[0],
+                                        owner * s, me * s)
+        if owner == me:  # the ring's first step merges into empty lists
+            run_i, run_d = torch.full_like(new_i, -1), torch.full_like(new_d, 3.4e38)
+        else:
+            run_i, run_d = kp.knn_panel_ext(ebf[me], norms[me], ebf[me], norms[me], k, ebf[me].shape[0], me * s,
+                                            me * s)
+        checked[("topk_merge", path)] = merge_check(torch, kp, torch.stack([run_d, new_d], 1),
+                                                    torch.stack([run_i, new_i], 1))
+
+    # (a) the sharded build over phase 4's matrix (the unit rows) at diskann's
+    # candidate width (R = 32, C = 64), against phase 4's one-card build
+    emb = main.pop("graph_data")
+    build_s = {}
+    sb._ring_knn_placed = recording_ring
+    try:
+        _reset(counters)
+        torch.cuda.synchronize()
+        t = time.time()
+        graph_sh, medoid_sh = sb.sharded_build_graph(emb, mesh, r=32, candidate_factor=2, phase_seconds=build_s)
+        build_wall = time.time() - t
+        launches["parallel/sharded_build"] = _counts(counters)
+        ring = rings.pop()
+        ring_ids = torch.cat([i for i, _ in ring["out"]]).cpu().numpy()
+        del ring["out"]
+        ring_step_checks(ring, 1, 0, emb.shape[1], "parallel/sharded_build")
+        del ring
+
+        be = LeannSearcher(main["prefix"]).backend  # phase 4's diskann index on the card
+        kw = {k: v for k, v in main["kw"].items() if k != "top_k"}
+        cfg, params = be._make_cfg(3, need_encoder=True, **kw)
+        _, qp = be._encode_text(queries, cfg, params)
+        g1 = be._graph_data()
+        g_sh = g1._replace(neighbors=torch.from_numpy(graph_sh.astype(np.int64)).to(dev))
+        n_rows = be.n  # the index's rows are sorted sets, padded with N (storage.pack_neighbors)
+        recall_graph = {name: _recall_sets(_label_sets(beam_search_batch(qp, g, cfg, params)[0].cpu(), be.id_list),
+                                           truth) for name, g in (("one_card", g1), ("sharded_build", g_sh))}
+        build_row = {"n": int(emb.shape[0]), "d": int(emb.shape[1]), "gp": gp, "k": 64, "build_s": build_s,
+                     "build_wall_s": build_wall, "ring_ids_equal_exact_knn": float(np.mean(ring_ids == main["knn_ids"])),
+                     "graph_rows_equal_one_card": float((np.sort(np.where(graph_sh >= 0, graph_sh, n_rows), axis=1)
+                                                         == be.neighbors.cpu().numpy()).all(axis=1).mean()),
+                     "medoid": [medoid_sh, int(np.load(main["prefix"] + ".diskann.npz")["medoid"])],
+                     "recall_at_3": recall_graph}
+        del emb, g_sh, graph_sh, ring_ids
+
+        parts_s["build"] = time.time() - t_part
+        t_part = time.time()
+        # (b) the sharded searcher over phase 4's index: its device tensors
+        # sliced into gp shards, so the card holds the index once
+        torch.cuda.synchronize()
+        mem0 = torch.cuda.memory_allocated()
+        index = dict(entries=be.entries, tokens=be.tokens, lengths=be.lengths, codes=be.codes,
+                     codebooks=be.codebooks, entry_emb=be.entry_emb)
+        ss = ShardedSearcher(mesh, be.neighbors, **index)
+        placed_bytes = torch.cuda.memory_allocated() - mem0
+        cfg_pq = dataclasses.replace(cfg, rerank=0)
+        l_pq, _ = ss.search(qp, cfg_pq, params)
+        l1_pq = beam_search_batch(qp, g1, cfg_pq, params)[0].cpu().numpy()
+        ss.search(qp, cfg, params)  # warm
+        torch.cuda.synchronize()
+        t = time.time()
+        l_sh, _ = ss.search(qp, cfg, params)
+        sharded_ms = (time.time() - t) * 1e3 / len(queries)
+        beam_search_batch(qp, g1, cfg, params)  # warm
+        torch.cuda.synchronize()
+        t = time.time()
+        l_one = beam_search_batch(qp, g1, cfg, params)[0].cpu().numpy()
+        one_ms = (time.time() - t) * 1e3 / len(queries)
+        l_gp2, _ = ShardedSearcher(graph_mesh(2, [dev] * 2), be.neighbors, **index).search(qp, cfg_pq, params)
+        l_dp2, _ = ShardedSearcher(serving_mesh(2, 2, [dev] * 4), be.neighbors, **index).search(qp, cfg_pq, params)
+        search_row = {"gp": gp, "queries": len(queries), "placed_bytes": placed_bytes,
+                      "pq_label_sets_equal_one_card": float(np.mean([set(a) == set(b) for a, b in
+                                                                     zip(l_pq.tolist(), l1_pq.tolist())])),
+                      "recall_at_3": {"sharded": _recall_sets(_label_sets(l_sh, be.id_list), truth),
+                                      "one_card": _recall_sets(_label_sets(l_one, be.id_list), truth)},
+                      "ms_per_query": {"sharded": sharded_ms, "one_card": one_ms},
+                      "serving_dp2_gp2_rows_equal_gp2": int((l_gp2 == l_dp2).all(axis=1).sum())}
+        del ss, be, g1, index
+        torch.cuda.empty_cache()
+
+        parts_s["search"] = time.time() - t_part
+        t_part = time.time()
+        # (c) the normal entry points at gp = the card count: hnsw built with
+        # build_sharded=True over the first 20,000 chunks, searched by a
+        # sharded and an unsharded LeannSearcher against a flat oracle
+        sub = chunks[:PARALLEL_ENTRY_CHUNKS]
+        sub_q = [" ".join(sub[i].split()[:12]) for i in np.random.default_rng(14).choice(len(sub), 64, replace=False)]
+        prefix = os.path.join(workdir, "par_hnsw.leann")
+        _reset(counters)
+        b = LeannBuilder(embedding_model="hash-minilm", max_length=128, build_sharded=True)
+        for c in sub:
+            b.add_text(c)
+        b.build_index(prefix)
+        launches["parallel/build_sharded_hnsw"] = _counts(counters)
+        ring = rings.pop()
+        del ring["out"]
+        ring_step_checks(ring, 0, 0, ring["ebf"][0].shape[1], "parallel/build_sharded_hnsw")
+        del ring
+    finally:
+        sb._ring_knn_placed = real_ring
+    oracle = LeannBuilder(backend_name="flat", embedding_model="hash-minilm", max_length=128)
+    for c in sub:
+        oracle.add_text(c)
+    oracle_prefix = os.path.join(workdir, "par_flat.leann")
+    oracle.build_index(oracle_prefix)
+    sub_truth = LeannSearcher(oracle_prefix).search(sub_q, top_k=3)
+    s_sh = LeannSearcher(prefix, sharded=True)
+    got_sh, entry_ms_sh = _timed_search(torch, s_sh, sub_q, **PARALLEL_ENTRY_KW)
+    got_one, entry_ms_one = _timed_search(torch, LeannSearcher(prefix), sub_q, **PARALLEL_ENTRY_KW)
+    entry_row = {"chunks": len(sub), "card_count": torch.cuda.device_count(), "gp": s_sh.backend._sharded.gp,
+                 "build_s": dict(b.phase_seconds),
+                 "recall_at_3": {"sharded": _recall(got_sh, sub_truth), "unsharded": _recall(got_one, sub_truth)},
+                 "ms_per_query": {"sharded": entry_ms_sh, "unsharded": entry_ms_one},
+                 "auto_unsharded": LeannSearcher(prefix, sharded="auto").backend._sharded is None}
+    del s_sh
+
+    parts_s["entry_points"] = time.time() - t_part
+    t_part = time.time()
+    # (d) the trainer on a (dp, tp) = (2, 2) mesh of the card against the
+    # one-device trainer, from the same seeded params over the same batches:
+    # in f32, where the mesh's split sums are all that differs (checked),
+    # and in bf16, the model's own products, where Adam turns each side's
+    # rounding into other updates (its later steps held to a wider limit)
+    enc = get_encoder("hash-minilm", max_length=TRAIN_D_LEN, device=dev)
+    picks = np.random.default_rng(15).choice(len(chunks), PARALLEL_TRAIN_STEPS * PARALLEL_TRAIN_BATCH, replace=False)
+    q_ids, q_mask = enc.tokenize([" ".join(chunks[i].split()[:12]) for i in picks], TRAIN_Q_LEN)
+    d_ids, d_mask = enc.tokenize([chunks[i] for i in picks], TRAIN_D_LEN)
+    train_row = {"model": "hash-minilm", "steps": PARALLEL_TRAIN_STEPS, "batch": PARALLEL_TRAIN_BATCH,
+                 "lr": TRAIN_LR, "q_len": TRAIN_Q_LEN, "d_len": TRAIN_D_LEN}
+    for dtype in ("float32", "bfloat16"):
+        cfg_t = dataclasses.replace(MODEL_REGISTRY["hash-minilm"], compute_dtype=dtype)
+        tree = init_params(cfg_t)
+        losses, step_ms = {}, {}
+        trainers = {"one_device": lambda: ContrastiveTrainer(cfg_t, learning_rate=TRAIN_LR, params=tree, device=dev),
+                    "mesh_dp2_tp2": lambda: ContrastiveTrainer(cfg_t, make_mesh([("dp", 2), ("tp", 2)], [dev] * 4),
+                                                               TRAIN_LR, params=tree)}
+        for name, make in trainers.items():
+            tr = make()
+            losses[name], secs = [], []
+            for step in range(PARALLEL_TRAIN_STEPS if dtype == "float32" else PARALLEL_BF16_STEPS):
+                sl = slice(step * PARALLEL_TRAIN_BATCH, (step + 1) * PARALLEL_TRAIN_BATCH)
+                t = time.time()
+                losses[name].append(tr.train_step(q_ids[sl], q_mask[sl], d_ids[sl], d_mask[sl]))  # ends on the card
+                secs.append(time.time() - t)
+            step_ms[name] = float(np.mean(secs[2:])) * 1e3
+            del tr
+        torch.cuda.empty_cache()
+        rel = np.abs(np.array(losses["mesh_dp2_tp2"]) - losses["one_device"]) / np.abs(losses["one_device"])
+        train_row[dtype] = {"losses": losses, "rel_loss_diff": rel.tolist(), "warm_ms_per_step": step_ms,
+                            "finite": bool(np.isfinite(losses["mesh_dp2_tp2"]).all())}
+
+    parts_s["trainer"] = time.time() - t_part
+    t_part = time.time()
+    kr = one_window(torch, checked)
+    parts_s["kernel_rows"] = time.time() - t_part
+    row = {"phase": "parallel", "mesh": f"{gp} gp shards of one card", "sharded_build": build_row,
+           "sharded_search": search_row, "entry_points": entry_row, "trainer": train_row, "launches": launches,
+           "phase_s": time.time() - t_phase, "parts_s": parts_s,
+           "kernels": {f"{name}@{path}": {key: v for key, v in r.items() if key != "kernel_parts_ms"}
+                       for (name, path), r in kr.items()},
+           "reduced": "one card: the gp shards share it, so no number here is a multi-card one"}
+    emit(row)
+    want = gp * gp
+    got = launches["parallel/sharded_build"]
+    if got["knn_panel_ext"] != want or got["topk_merge"] != want or got["knn_panel"]:
+        fail(f"the sharded build over {gp} shards did not launch {want} ring steps and {want} merges: {got}")
+    if build_row["ring_ids_equal_exact_knn"] < 0.9999:
+        fail(f"ring_knn's ids differ from phase 4's exact_knn: {build_row['ring_ids_equal_exact_knn']}")
+    if abs(recall_graph["sharded_build"] - recall_graph["one_card"]) > 0.02:
+        fail(f"the sharded graph's recall@3 is off the one-card graph's: {recall_graph}")
+    if search_row["pq_label_sets_equal_one_card"] < 0.99:
+        fail(f"the sharded pq traversal differs from the one-card search: {search_row}")
+    if abs(search_row["recall_at_3"]["sharded"] - search_row["recall_at_3"]["one_card"]) > 0.02:
+        fail(f"the sharded search's recall@3 is off the one-card search's: {search_row}")
+    if search_row["serving_dp2_gp2_rows_equal_gp2"] != len(queries):
+        fail(f"the (dp 2, gp 2) search differs from the gp 2 search: {search_row}")
+    cards = torch.cuda.device_count()
+    got = launches["parallel/build_sharded_hnsw"]
+    if entry_row["gp"] != cards or got["knn_panel_ext"] != cards * cards or got["topk_merge"] != cards * cards:
+        fail(f"build_sharded / sharded=True did not run over one shard per card: {entry_row}, {got}")
+    if abs(entry_row["recall_at_3"]["sharded"] - entry_row["recall_at_3"]["unsharded"]) > 0.02:
+        fail(f"the sharded LeannSearcher's recall@3 is off the unsharded one's: {entry_row}")
+    if cards == 1 and not entry_row["auto_unsharded"]:
+        fail("sharded='auto' sharded a searcher on a one-card machine")
+    f32, bf16 = train_row["float32"], train_row["bfloat16"]
+    if not (f32["finite"] and bf16["finite"] and max(f32["rel_loss_diff"]) <= PARALLEL_LOSS_RTOL
+            and bf16["rel_loss_diff"][0] <= PARALLEL_LOSS_RTOL
+            and max(bf16["rel_loss_diff"][1:]) <= PARALLEL_BF16_LATER_RTOL):
+        fail(f"the (2, 2) mesh trainer's losses are off the one-device trainer's: {train_row}")
+    for (name, path), r in kr.items():
+        if r.get("identical") is False or r.get("overlap", 1.0) < 0.9999 or r["max_abs_err"] > 1e-5:
+            fail(f"{name} on {path} disagrees with its plain version: {r}")
+    return kr, launches
+
+
 def _timed(fn):
     """-> (``fn()``, its wall seconds on the host's clock)."""
     t = time.time()
@@ -3072,6 +3347,7 @@ def main() -> int:
         more.append(phase_surface(torch, dev, workdir))
         more.append(phase_multilingual(torch, dev, workdir, main_state["chunks"], main_state["queries"]))
         more.append(phase_apps(torch, dev, workdir, os.path.join(workdir, "surface", "docs"), main_state["chunks"]))
+        more.append(phase_parallel(torch, dev, workdir, main_state))
     for kr, more_launches in more:
         launches.update(more_launches)
         rows += [(name, path, r, b1 if name == "flat_topk" else b2) for (name, path), r in kr.items()]

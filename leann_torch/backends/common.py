@@ -22,6 +22,9 @@ from ..embeddings.encoder import encode_tokens
 from ..ops.beam_search import (GraphData, beam_search_adaptive, beam_search_batch_packed,
                                beam_search_text_batch_packed, unpack_results)
 from ..ops.pq import lift_codebooks
+from ..parallel.mesh import graph_mesh, shard_devices
+from ..parallel.sharded_build import sharded_build_graph
+from ..parallel.sharded_search import ShardedSearcher
 from ..storage import derive_token_cache, load_ids, load_token_cache, save_ids, unpack_neighbors  # noqa: F401
 
 logger = logging.getLogger(__name__)
@@ -185,6 +188,25 @@ class GraphSearcher(BaseSearcher):
     budget capped there, then only the lanes that reached the cap run again
     at full budget. The results are the same."""
 
+    @staticmethod
+    def _want_sharded(sharded: "bool | str", device: torch.device) -> bool:
+        """``sharded``: True, False, or "auto": sharded when the searcher
+        runs on a card and the machine has more than one."""
+        if sharded == "auto":
+            return device.type == "cuda" and torch.cuda.device_count() > 1
+        return sharded is True
+
+    def _shard(self) -> None:
+        """Place the loaded index over a ``gp`` mesh of
+        ``mesh.shard_devices(device)`` (one shard per card): the sharded
+        searcher slices the device tensors where a shard lies on the
+        searcher's device, so a card holds its rows once."""
+        mesh = graph_mesh(devices=shard_devices(self.device))
+        self._sharded = ShardedSearcher(mesh, self.neighbors, entries=self.entries, emb=self.emb,
+                                        tokens=self.tokens, lengths=self.lengths, codes=self.codes,
+                                        codebooks=self.codebooks, entry_emb=self.entry_emb)
+        logger.info("%s searcher sharded over %d shards", type(self).__name__, mesh.size)
+
     def _load(self, z, tokens_on_device: bool = True) -> None:
         """State of the backend npz ``z`` onto the device; the token store
         stays on the host as ``tokens_host`` / ``lengths_host`` (a raw
@@ -217,6 +239,7 @@ class GraphSearcher(BaseSearcher):
             self.tokens_host = tok[0]
             self.lengths_host = np.asarray(tok[1], np.int32)
         self._enc = None
+        self._sharded: Optional[ShardedSearcher] = None
 
     def _encoder(self):
         if self._enc is None:
@@ -254,7 +277,14 @@ class GraphSearcher(BaseSearcher):
         return real_b, q
 
     def _run(self, real_b: int, qp: torch.Tensor, cfg, enc_params, adaptive_steps: int) -> Dict[str, np.ndarray]:
-        if adaptive_steps:
+        """Search the padded batch ``qp`` -> the first ``real_b`` rows'
+        results. A sharded searcher runs the mesh search (which has no
+        adaptive pass, as in the JAX package), each shard re-encoding at
+        most ``prune_keep // gp`` candidates a hop."""
+        if self._sharded is not None:
+            keep_local = max(1, cfg.prune_keep // self._sharded.gp) if cfg.prune_keep else 0
+            labels, dists = self._sharded.search(qp, cfg, enc_params, keep_local=keep_local)
+        elif adaptive_steps:
             labels, dists, _, _ = beam_search_adaptive(qp, self._graph_data(), cfg, enc_params,
                                                        first_steps=adaptive_steps)
         else:
@@ -274,7 +304,7 @@ class GraphSearcher(BaseSearcher):
         same encoded queries."""
         queries = [query] if isinstance(query, str) else list(query)
         cfg, enc_params = self._make_cfg(top_k, need_encoder=True, **kwargs)
-        if adaptive_steps:
+        if adaptive_steps or self._sharded is not None:
             return self._run(*self._encode_text(queries, cfg, enc_params), cfg, enc_params, int(adaptive_steps))
         q_ids, q_mask = self._encoder().tokenize(queries)
         real_b, (q_ids, q_mask) = pad_batch_rows(q_ids, q_mask)
@@ -283,6 +313,19 @@ class GraphSearcher(BaseSearcher):
             self._graph_data(), cfg, enc_params)
         labels, dists = unpack_results(packed)
         return {"labels": labels[:real_b], "distances": dists[:real_b]}
+
+
+def sharded_neighbors(builder, graph_data: np.ndarray, r: int, candidate_factor: int) -> "tuple[np.ndarray, int]":
+    """A graph builder's ``build_sharded`` graph -> (neighbors i32[N, R],
+    medoid): the gp-mesh build (``parallel/sharded_build.py``) over
+    ``mesh.shard_devices(builder.device)`` (one shard per card), which, as
+    in the JAX package, keeps no checkpoints and takes no reverse
+    candidates. Phase seconds go to ``builder.phase_seconds``."""
+    if builder.build_checkpoint_dir:
+        logger.warning("build_checkpoint_dir is not supported by the mesh-sharded build; phases will not checkpoint")
+    mesh = graph_mesh(devices=shard_devices(builder.device))
+    return sharded_build_graph(graph_data, mesh, r=r, candidate_factor=candidate_factor, alpha=builder.alpha,
+                               phase_seconds=builder.phase_seconds)
 
 
 def mips_augment(data):

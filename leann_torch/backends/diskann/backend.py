@@ -42,7 +42,7 @@ from ...ops.graph import build_graph
 from ...ops.pq import choose_m, encode_pq_blocked, lift_codebooks, train_opq, train_pq
 from ...registry import register_backend
 from ...storage import pack_neighbors, save_partition, token_cache_paths
-from ..common import GraphSearcher, _entry_pool, mips_augment, not_ported, save_ids
+from ..common import GraphSearcher, _entry_pool, mips_augment, save_ids, sharded_neighbors
 from .partition import edge_locality, ldg_partition
 
 logger = logging.getLogger(__name__)
@@ -61,15 +61,14 @@ class DiskannBuilder(LeannBackendBuilderInterface):
         pq_rotate: bool = True,
         num_partitions: int = 0,  # 0 = auto: one partition per card
         partition_passes: int = 10,  # LDG refinement sweeps (the reference's gp_times)
-        build_sharded: bool = False,
+        build_sharded: bool = False,  # the gp-mesh build (parallel/sharded_build.py)
         build_checkpoint_dir: str = "",
         reverse_candidates: int = 0,
         device: str = "cuda",
         **kwargs,
     ):
-        if build_sharded:
-            raise not_ported("the mesh-sharded build", "ROADMAP.md §A #5, parallel/* across cards")
         self.device = resolve_device(device)
+        self.build_sharded = build_sharded
         self.distance_metric = distance_metric
         self.is_recompute = is_recompute
         self.graph_degree = graph_degree
@@ -95,11 +94,14 @@ class DiskannBuilder(LeannBackendBuilderInterface):
         graph_data = mips_augment(data) if self.distance_metric == "mips" else data
         r = self.graph_degree
         cand_factor = max(2, min(8, self.complexity // max(r, 1)))
-        neighbors, medoid = build_graph(
-            graph_data, r=r, candidate_factor=cand_factor, alpha=self.alpha,
-            checkpoint_dir=self.build_checkpoint_dir, reverse_candidates=self.reverse_candidates,
-            device=self.device, phase_seconds=times,
-        )
+        if self.build_sharded:
+            neighbors, medoid = sharded_neighbors(self, graph_data, r, cand_factor)
+        else:
+            neighbors, medoid = build_graph(
+                graph_data, r=r, candidate_factor=cand_factor, alpha=self.alpha,
+                checkpoint_dir=self.build_checkpoint_dir, reverse_candidates=self.reverse_candidates,
+                device=self.device, phase_seconds=times,
+            )
         n_parts = self.num_partitions
         if n_parts > 1:
             t0 = time.time()
@@ -200,23 +202,26 @@ class DiskannSearcher(GraphSearcher, LeannBackendSearcherInterface):
     # own figure, not the TPU's fixed 4 GB)
     HOST_TOKEN_SHARE = 0.25
 
-    def __init__(self, index_path: str, sharded: "bool | str" = False, token_residency: str = "auto",
-                 **kwargs):
+    def __init__(self, index_path: str, sharded: "bool | str" = False, token_residency: str = "auto", **kwargs):
         """``token_residency``: "device" uploads the token store, "host"
         keeps it in host RAM (a raw store stays memmapped) and defers the
         exact rerank to a second call over host-gathered rows, "auto" keeps
         it on the host when its i32 form would take more than
-        ``HOST_TOKEN_SHARE`` of the card's free memory."""
+        ``HOST_TOKEN_SHARE`` of the card's free memory. ``sharded`` (True,
+        or "auto" on a machine with more than one card) searches over a
+        ``gp`` mesh of one shard per card, with the
+        token store on the devices, split over them."""
         super().__init__(index_path, **kwargs)
-        if sharded is True:
-            raise not_ported("the sharded searcher", "ROADMAP.md §A #5, parallel/* across cards")
         if token_residency not in ("host", "device", "auto"):
             raise ValueError(f"unknown token_residency {token_residency!r}")
-        host = token_residency == "host"
-        if token_residency == "auto" and self.device.type == "cuda":
+        want_sharded = self._want_sharded(sharded, self.device)
+        host = token_residency == "host" and not want_sharded
+        if token_residency == "auto" and self.device.type == "cuda" and not want_sharded:
             tok_bytes = 4 * self.meta.get("num_chunks", 0) * self.max_length  # i32 on the card
             host = tok_bytes > self.HOST_TOKEN_SHARE * torch.cuda.mem_get_info(self.device)[0]
         self._load(np.load(f"{index_path}.diskann.npz", allow_pickle=False), tokens_on_device=not host)
+        if want_sharded:
+            self._shard()
         if self.tokens_host is not None:
             logger.info("diskann tokens host-resident (%.2f GB); deferred rerank",
                         self.tokens_host.nbytes / 2**30)

@@ -42,7 +42,7 @@ from ...ops.pq import choose_m, encode_pq_blocked, lift_codebooks, train_opq, tr
 from ...registry import register_backend
 from ...storage import pack_neighbors, unpack_neighbors
 from ..common import (ENTRY_POOL_SIZE, N_ENTRY_POINTS, GraphSearcher, _entry_pool, _pool_cap, mips_augment,
-                      not_ported, save_ids)
+                      save_ids, sharded_neighbors)
 
 logger = logging.getLogger(__name__)
 
@@ -66,15 +66,14 @@ class HnswBuilder(LeannBackendBuilderInterface):
         alpha: float = 1.2,
         pq_subspaces: int = 0,  # 0 = auto (~D/8)
         pq_rotate: bool = True,  # OPQ rotation
-        build_sharded: bool = False,
+        build_sharded: bool = False,  # the gp-mesh build (parallel/sharded_build.py)
         build_checkpoint_dir: str = "",
         reverse_candidates: int = 0,  # reverse-KNN prune candidates (ops/graph.py)
         device: str = "cuda",
         **kwargs,
     ):
-        if build_sharded:
-            raise not_ported("the mesh-sharded build", "ROADMAP.md §A #5, parallel/* across cards")
         self.device = resolve_device(device)
+        self.build_sharded = build_sharded
         self.distance_metric = distance_metric
         self.is_compact = is_compact
         self.is_recompute = is_recompute
@@ -96,11 +95,14 @@ class HnswBuilder(LeannBackendBuilderInterface):
         times = self.phase_seconds
         graph_data = mips_augment(data) if self.distance_metric == "mips" else data
         cand_factor = max(2, min(8, self.ef_construction // max(self.m, 1)))
-        neighbors, medoid = build_graph(
-            graph_data, r=self.m, candidate_factor=cand_factor, alpha=self.alpha,
-            checkpoint_dir=self.build_checkpoint_dir, reverse_candidates=self.reverse_candidates,
-            device=self.device, phase_seconds=times,
-        )
+        if self.build_sharded:
+            neighbors, medoid = sharded_neighbors(self, graph_data, self.m, cand_factor)
+        else:
+            neighbors, medoid = build_graph(
+                graph_data, r=self.m, candidate_factor=cand_factor, alpha=self.alpha,
+                checkpoint_dir=self.build_checkpoint_dir, reverse_candidates=self.reverse_candidates,
+                device=self.device, phase_seconds=times,
+            )
         payload: Dict[str, Any] = {
             **pack_neighbors(neighbors),
             "medoid": np.int32(medoid),
@@ -151,13 +153,17 @@ class HnswSearcher(GraphSearcher, LeannBackendSearcherInterface):
     token store all live on the searcher's device."""
 
     def __init__(self, index_path: str, sharded: "bool | str" = False, **kwargs):
+        """``sharded`` (True, or "auto" on a machine with more than one
+        card) searches over a ``gp`` mesh of one shard per card; a pruned
+        recompute then re-encodes at most ``prune_keep
+        // gp`` candidates per shard and hop."""
         super().__init__(index_path, **kwargs)
-        if sharded is True:
-            raise not_ported("the sharded searcher", "ROADMAP.md §A #5, parallel/* across cards")
         z = np.load(f"{index_path}.hnsw.npz", allow_pickle=False)
         self.is_compact = bool(z["is_compact"])
         self.has_pq = "codes" in z
         self._load(z)
+        if self._want_sharded(sharded, self.device):
+            self._shard()
 
     def _make_cfg(
         self,

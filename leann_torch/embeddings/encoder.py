@@ -42,6 +42,7 @@ import numpy as np
 import torch
 
 from ..device import matmul, resolve_device
+from ..parallel.mesh import psum
 from . import seeded
 from .tokenizer import get_tokenizer, stable_hash
 
@@ -195,12 +196,20 @@ def _layer_norm(x, p, eps=1e-6):
     return (x - mu) * torch.rsqrt(var + eps) * p["scale"] + p["bias"]
 
 
+def _project(x, w, dtype):
+    return matmul(_round(x, dtype), _round(w, dtype))
+
+
 def _dense(x, p, dtype):
-    return matmul(_round(x, dtype), _round(p["w"], dtype)) + p["b"]
+    return _project(x, p["w"], dtype) + p["b"]
 
 
 def _attention(x, mask, layer, cfg: EncoderConfig, dtype):
-    B, T, D = x.shape
+    """Multi-head self-attention of x [B, T, D] over ``cfg.n_heads`` heads
+    of ``cfg.head_dim``, projected back by ``layer["o"]["w"]`` without its
+    bias (a tensor-parallel shard passes its own heads: the q / k / v
+    columns and o rows it holds)."""
+    B, T = x.shape[:2]
     H, hd = cfg.n_heads, cfg.head_dim
     q = _dense(x, layer["q"], dtype).reshape(B, T, H, hd).transpose(1, 2)  # [B, H, T, hd]
     k = _dense(x, layer["k"], dtype).reshape(B, T, H, hd).transpose(1, 2)
@@ -210,29 +219,50 @@ def _attention(x, mask, layer, cfg: EncoderConfig, dtype):
     scores = scores.masked_fill(~(mask[:, None, None, :] > 0), neg)
     probs = torch.softmax(scores, dim=-1)
     ctx = matmul(_round(probs, dtype), _round(v, dtype))  # [B, H, T, hd]
-    return _dense(ctx.transpose(1, 2).reshape(B, T, D), layer["o"], dtype)
+    return _project(ctx.transpose(1, 2).reshape(B, T, H * hd), layer["o"]["w"], dtype)
 
 
-def encode_tokens(params: Dict, ids: torch.Tensor, mask: torch.Tensor, cfg: EncoderConfig) -> torch.Tensor:
-    """(params, ids[B,T] int, mask[B,T] int) -> pooled embeddings [B, D] f32."""
+def encode_tokens(params: Dict, ids: torch.Tensor, mask: torch.Tensor, cfg: EncoderConfig,
+                  tp: Optional[Sequence[Tuple[Dict, torch.device]]] = None) -> torch.Tensor:
+    """(params, ids[B,T] int, mask[B,T] int) -> pooled embeddings [B, D] f32.
+
+    ``tp``: each layer's attention heads and MLP columns split over
+    tensor-parallel shards, as (shard j's params, its device) pairs
+    (``parallel/train.py``): shard j computes its heads' attention and its
+    slice of the MLP, and the shards' partial o / fc2 projections are summed
+    (``parallel/mesh.psum``) on the device of ``params``, where the
+    residual stream, the LayerNorms and the pooling run. None: one shard,
+    ``params`` itself."""
     dtype = _DTYPES[cfg.compute_dtype]
     B, T = ids.shape
     ids = ids.long()  # token stores keep u16 rows; widen before the gather
     x = params["tok_emb"][ids] + params["pos_emb"][:T][None, :, :]
+    dev = x.device
+    shards = [(params, mask)] if tp is None else [(p, mask.to(d)) for p, d in tp]
+    shard_cfg = cfg if tp is None else replace(cfg, n_heads=cfg.n_heads // len(tp), dim=cfg.dim // len(tp))
     # HF BERT checkpoints use exact (erf) gelu; the seeded prenorm models tanh
     gelu = "tanh" if cfg.arch == "prenorm" else "none"
+
+    def attention(x, i):
+        parts = [_attention(x.to(m.device), m, p["layers"][i], shard_cfg, dtype) for p, m in shards]
+        return psum(parts, dev) + params["layers"][i]["o"]["b"]
+
+    def mlp(x, i):
+        parts = []
+        for p, m in shards:
+            h = _dense(x.to(m.device), p["layers"][i]["fc1"], dtype)
+            parts.append(_project(torch.nn.functional.gelu(h, approximate=gelu), p["layers"][i]["fc2"]["w"], dtype))
+        return psum(parts, dev) + params["layers"][i]["fc2"]["b"]
+
     if cfg.arch == "bert":
         x = _layer_norm(x, params["emb_ln"])
-    for layer in params["layers"]:
+    for i, layer in enumerate(params["layers"]):
         if cfg.arch == "prenorm":
-            x = x + _attention(_layer_norm(x, layer["ln1"]), mask, layer, cfg, dtype)
-            h = _dense(_layer_norm(x, layer["ln2"]), layer["fc1"], dtype)
-            x = x + _dense(torch.nn.functional.gelu(h, approximate=gelu), layer["fc2"], dtype)
+            x = x + attention(_layer_norm(x, layer["ln1"]), i)
+            x = x + mlp(_layer_norm(x, layer["ln2"]), i)
         else:  # bert post-LN
-            x = _layer_norm(x + _attention(x, mask, layer, cfg, dtype), layer["ln1"])
-            h = _dense(x, layer["fc1"], dtype)
-            x = _layer_norm(x + _dense(torch.nn.functional.gelu(h, approximate=gelu), layer["fc2"], dtype),
-                            layer["ln2"])
+            x = _layer_norm(x + attention(x, i), layer["ln1"])
+            x = _layer_norm(x + mlp(x, i), layer["ln2"])
     if cfg.arch == "prenorm":
         x = _layer_norm(x, params["final_ln"])
     # masked mean pooling in f32 (sentence-transformers-style)

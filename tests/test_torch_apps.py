@@ -383,17 +383,22 @@ def test_default_device_without_cuda_exits(entry, tmp_path, monkeypatch):
 
 
 def test_trainer_takes_the_jax_positional_mesh():
-    """The JAX package's form ContrastiveTrainer(cfg, mesh, learning_rate=..)
-    names the roadmap item of the mesh; the keyword form still trains on one
-    device."""
+    """The JAX package's form ContrastiveTrainer(cfg, mesh, learning_rate)
+    trains over the mesh, with the learning rate where it was given,
+    positional or not; the keyword form still trains on one device."""
+    import torch
+
     from leann_torch.embeddings.encoder import MODEL_REGISTRY
+    from leann_torch.parallel.mesh import make_mesh
     from leann_torch.parallel.train import ContrastiveTrainer
 
     cfg = MODEL_REGISTRY["hash-tiny"]
-    for args, kw in (((object(),), {"learning_rate": 1e-3}), ((object(),), {})):
-        with pytest.raises(NotImplementedError, match=r"mesh.*not ported.*§A #5"):
-            ContrastiveTrainer(cfg, *args, **kw)
+    mesh = make_mesh([("dp", 2), ("tp", 2)], [torch.device("cpu")] * 4)
+    for args, kw, lr in (((mesh,), {"learning_rate": 1e-3}, 1e-3), ((mesh, 5e-4), {}, 5e-4), ((mesh,), {}, 2e-5)):
+        tr = ContrastiveTrainer(cfg, *args, **kw)
+        assert tr.mesh is mesh and tr.optimizer.param_groups[0]["lr"] == lr
+    assert (tr.dp, tr.tp) == (2, 2)
     tr = ContrastiveTrainer(cfg, learning_rate=1e-3, device="cpu")
-    assert tr.optimizer.param_groups[0]["lr"] == 1e-3
+    assert tr.mesh is None and tr.optimizer.param_groups[0]["lr"] == 1e-3
     tr = ContrastiveTrainer(cfg, None, 5e-4, device="cpu")
     assert tr.optimizer.param_groups[0]["lr"] == 5e-4

@@ -571,3 +571,83 @@ def test_int32_token_store_on_the_card_matches_the_cpu(cuda, tmp_path, backend):
             assert (s.backend.tokens_host is not None) == (residency == "host")
         got = [[r.id for r in row] for row in s.search(queries, **search)]
         assert got == cpu, residency
+
+
+@pytest.mark.parametrize("k", [64, 128])
+def test_ring_knn_on_the_card_matches_plain(cuda, k):
+    """ring_knn over 4 shards of one card: each of the 4 x 4 ring steps one
+    launch of B2's external entry and one of the merge, the lists those of
+    the same ring run through the plain versions (the same mesh of CPU
+    shards), id overlap >= 0.9999 and distances within 1e-5."""
+    from leann_torch.parallel.mesh import graph_mesh
+    from leann_torch.parallel.sharded_build import ring_knn
+
+    emb = np.random.default_rng(k).standard_normal((20_000, 384)).astype(np.float32)
+    kp.knn_panel_ext.launches = kp.topk_merge.launches = 0
+    ids, dists = ring_knn(emb, k, graph_mesh(4, [cuda] * 4))
+    assert (kp.knn_panel_ext.launches, kp.topk_merge.launches) == (16, 16)
+    pi, pd = ring_knn(emb, k, graph_mesh(4, [torch.device("cpu")] * 4))
+    assert _overlap(ids, pi) >= 0.9999
+    assert np.abs(dists - pd).max() <= 1e-5 * max(1.0, float(np.abs(pd).max()))
+    assert not (ids == np.arange(20_000)[:, None]).any()
+
+
+def test_sharded_search_on_the_card_matches_the_cpu(cuda, tmp_path, monkeypatch):
+    """An hnsw index built with build_sharded=True over 4 shards of the card
+    and searched sharded on it: the labels of the same build and search on
+    4 CPU shards (recompute, PQ-screened) on >= 0.95 of queries, and recall@3
+    against a flat oracle within 0.05 of the unsharded search's (the mesh
+    re-encodes a union of per-shard picks, not the one-device pick)."""
+    from leann_torch import LeannBuilder, LeannSearcher
+    from leann_torch.backends import common
+
+    rng = np.random.default_rng(21)
+    words = [f"w{i}" for i in range(400)]
+    texts = [f"doc{i} " + " ".join(rng.choice(words, 14)) for i in range(2000)]
+    queries = [" ".join(t.split()[:8]) for t in texts[:64]]
+    search = dict(top_k=3, complexity=32, beam_width=4, prune_ratio=0.5)
+    got = {}
+    # 4 shards of the device the entry point runs on (one card here)
+    monkeypatch.setattr(common, "shard_devices", lambda device: [torch.device(device)] * 4)
+    for dev, backend, extra in (("cuda", "hnsw", {"build_sharded": True, "M": 8}),
+                                ("cpu", "hnsw", {"build_sharded": True, "M": 8}),
+                                ("cuda", "flat", {})):
+        b = LeannBuilder(backend_name=backend, embedding_model="hash-tiny", max_length=32, device=dev, **extra)
+        for t in texts:
+            b.add_text(t)
+        prefix = str(tmp_path / f"{dev}_{backend}.leann")
+        b.build_index(prefix)
+        if backend == "flat":
+            truth = [[r.id for r in row] for row in LeannSearcher(prefix, device=dev).search(queries, top_k=3)]
+            continue
+        s = LeannSearcher(prefix, sharded=True, device=dev)
+        assert s.backend._sharded.gp == 4
+        got[dev] = [[r.id for r in row] for row in s.search(queries, **search)]
+    assert np.mean([set(a) == set(b) for a, b in zip(got["cuda"], got["cpu"])]) >= 0.95
+    plain = [[r.id for r in row] for row in LeannSearcher(str(tmp_path / "cuda_hnsw.leann"), device="cuda").search(
+        queries, **search)]
+
+    def recall(rows):
+        return np.mean([len(set(a) & set(b)) / 3 for a, b in zip(rows, truth)])
+
+    assert recall(got["cuda"]) >= recall(plain) - 0.05
+
+
+def test_trainer_mesh_on_the_card_matches_one_device(cuda):
+    """ContrastiveTrainer on a (2, 2) mesh of one card at hash-minilm's
+    widths: three steps' losses within 1e-3 of the one-device trainer's."""
+    from leann_torch.embeddings import encoder as te
+    from leann_torch.parallel.mesh import make_mesh
+    from leann_torch.parallel.train import ContrastiveTrainer
+
+    cfg = te.MODEL_REGISTRY["hash-minilm"]
+    rng = np.random.default_rng(5)
+    q = rng.integers(0, cfg.vocab_size, (32, 32)).astype(np.int32)
+    d = rng.integers(0, cfg.vocab_size, (32, 64)).astype(np.int32)
+    qm = (np.arange(32)[None, :] < rng.integers(4, 33, 32)[:, None]).astype(np.int32)
+    dm = (np.arange(64)[None, :] < rng.integers(8, 65, 32)[:, None]).astype(np.int32)
+    one = ContrastiveTrainer(cfg, learning_rate=1e-4, device="cuda")
+    mesh = ContrastiveTrainer(cfg, make_mesh([("dp", 2), ("tp", 2)], [cuda] * 4), 1e-4)
+    l_one = [one.train_step(q, qm, d, dm) for _ in range(3)]
+    l_mesh = [mesh.train_step(q, qm, d, dm) for _ in range(3)]
+    np.testing.assert_allclose(l_mesh, l_one, rtol=1e-3)

@@ -138,9 +138,9 @@ def test_default_backend_is_hnsw(tmp_path):
 
 
 def test_unported_backend_raises():
-    """Every backend of the JAX package is registered; what the port still
-    lacks of the graph backends raises naming its ROADMAP.md item. The hnsw
-    and flat inserts are ported (diskann has none, as in the JAX package)."""
+    """Every backend of the JAX package is registered, and the graph
+    builders take every option of the JAX package's. The hnsw and flat
+    inserts are ported (diskann has none, as in the JAX package)."""
     from leann_torch.registry import get_backend, get_registered_backends
 
     assert get_registered_backends() == ["diskann", "flat", "hnsw"]
@@ -148,9 +148,9 @@ def test_unported_backend_raises():
     assert [hasattr(get_backend(b), "insert") for b in ("diskann", "flat", "hnsw")] == [False, True, True]
     with pytest.raises(FileNotFoundError):
         hnsw.insert("no-such-index.leann", np.zeros((1, 8), np.float32), device="cpu")
+    # the gp-mesh build is ported: both builders take build_sharded
     for backend in ("hnsw", "diskann"):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md §A #5, parallel"):
-            get_backend(backend).builder(build_sharded=True, device="cpu")
+        assert get_backend(backend).builder(build_sharded=True, device="cpu").build_sharded is True
     # LDG partitioning is ported: the builder takes a partition count
     assert get_backend("diskann").builder(num_partitions=4, device="cpu").num_partitions == 4
     # the checkpointed build is ported: the builder takes its directory
