@@ -244,7 +244,28 @@ final line):
      seeded params: in f32 the losses within 1e-3 relative at every step,
      in bf16 (4 steps) within 1e-3 at the first and 2e-3 at the others
      (Adam turns rounding noise into other updates); ms per step of each.
- 15. the kernels line: per kernel, path and k its launches on that path
+ 15. checkpoints whose only tokenizer files are the slow ones transformers
+     converts, read by the port's own converters. (a) a checkpoint
+     directory at the widths of almanach/camembert-base's published
+     config.json (CamemBERT, vocab 32,005, hidden 768, 12 layers, 12 heads,
+     MLP 3,072, 514 positions, one token type, pad id 1; seeded weights
+     under the roberta. prefix beside an lm_head, as a CamembertForMaskedLM
+     saves them) whose only tokenizer file is a sentencepiece.bpe.model
+     the script writes in protobuf's wire format (a Unigram of 32,000
+     pieces with fairseq's head, the nmt_nfkc-style charsmap of phase 12,
+     pieces that cover the corpus's words) beside a tokenizer_config.json
+     naming CamembertTokenizer: the first 20,000 of phase 4's chunks and 64
+     queries through indexes_from_dir, with phase 12's checks (the
+     checkpoint loaded, no <unk>, one B2 launch at k = 64 and one B1, each
+     against its plain version, recall@3 >= 0.80) and the port's
+     SpmTokenizer as the reader. (b) host only, on the same 20,000 chunks:
+     the pipeline the port made of the .model written as a tokenizer.json
+     twin gives the same ids and masks; phase 12's distilroberta
+     vocabulary and merges written as vocab.json + merges.txt give the ids
+     and masks of their tokenizer.json (these check that the card's Python
+     runs the converters as the CPU tests do; the references are the CPU
+     tests').
+ 16. the kernels line: per kernel, path and k its launches on that path
      (each path's counts set to 0 just before it and read just after), its
      device time and call time, its plain version's and a library call's
      time at that path's shapes, and its bound on the card.
@@ -2482,37 +2503,46 @@ def e5_small_checkpoint(path: str) -> dict:
         return {**json.load(f), "tokenizer": info}
 
 
-def distilroberta_checkpoint(path: str) -> dict:
-    """A checkpoint directory at all-distilroberta-v1's widths as a
-    ``RobertaForMaskedLM`` saves it: the encoder's keys under ``roberta.``,
-    an ``lm_head``, one token type, 514 positions, pad id 1; seeded weights
-    (the port's writer, the keys renamed) and a byte-level BPE tokenizer
-    (:func:`roberta_tokenizer_files`)."""
+def roberta_masked_lm(path: str, widths: dict, name: str, seed: int, **config) -> dict:
+    """Seeded weights at ``widths`` as a RoBERTa-type ``*ForMaskedLM``
+    saves them: the encoder's keys under ``roberta.``, an ``lm_head``, one
+    token type, pad id 1, LayerNorm eps 1e-5 (the port's writer, the keys
+    renamed; the tree from ``seed``, the head from ``seed + 1``); ``config``
+    updates ``config.json``. -> the config."""
     from dataclasses import replace
 
     from leann_torch.embeddings import encoder as te
 
-    cfg = replace(te.EncoderConfig(), name="distilroberta-seeded", arch="bert", **DISTILROBERTA)
-    te.save_hf_weights(_seeded_tree(cfg, 13), cfg, path)
+    cfg = replace(te.EncoderConfig(), name=name, arch="bert", **widths)
+    te.save_hf_weights(_seeded_tree(cfg, seed), cfg, path)
     st = os.path.join(path, "model.safetensors")
     sd = {"roberta." + k: v for k, v in te.read_safetensors(st).items() if not k.startswith("pooler.")}
     sd["roberta.embeddings.token_type_embeddings.weight"] = sd["roberta.embeddings.token_type_embeddings.weight"][:1]
-    rng, d = np.random.default_rng(14), DISTILROBERTA["dim"]
+    rng, d = np.random.default_rng(seed + 1), widths["dim"]
     sd["lm_head.dense.weight"] = rng.standard_normal((d, d), dtype=np.float32) * np.float32(0.02)
     sd["lm_head.dense.bias"] = np.zeros(d, np.float32)
     sd["lm_head.layer_norm.weight"], sd["lm_head.layer_norm.bias"] = np.ones(d, np.float32), np.zeros(d, np.float32)
-    sd["lm_head.bias"] = np.zeros(DISTILROBERTA["vocab_size"], np.float32)
+    sd["lm_head.bias"] = np.zeros(widths["vocab_size"], np.float32)
     te.write_safetensors(sd, st)
     with open(os.path.join(path, "config.json")) as f:
-        config = json.load(f)
-    config.update(architectures=["RobertaForMaskedLM"], model_type="roberta", type_vocab_size=1, pad_token_id=1,
-                  bos_token_id=0, eos_token_id=2, layer_norm_eps=1e-5)
-    _write_json(os.path.join(path, "config.json"), config)
+        out = json.load(f)
+    out.update(type_vocab_size=1, pad_token_id=1, layer_norm_eps=1e-5, **config)
+    _write_json(os.path.join(path, "config.json"), out)
+    return out
+
+
+def distilroberta_checkpoint(path: str) -> dict:
+    """A checkpoint directory at all-distilroberta-v1's widths as a
+    ``RobertaForMaskedLM`` saves it (:func:`roberta_masked_lm`: 514
+    positions) with a byte-level BPE tokenizer
+    (:func:`roberta_tokenizer_files`)."""
+    config = roberta_masked_lm(path, DISTILROBERTA, "distilroberta-seeded", 13, architectures=["RobertaForMaskedLM"],
+                               model_type="roberta", bos_token_id=0, eos_token_id=2)
     return {**config, "tokenizer": roberta_tokenizer_files(path, DISTILROBERTA["vocab_size"])}
 
 
 def _family_path(torch, dev, workdir: str, tag: str, write_checkpoint, chunks, queries, counters, launches) -> dict:
-    """One checkpoint family of phase 12: the directory written, diskann
+    """One checkpoint family of phase 12 or 15: the directory written, diskann
     and a flat oracle from it (:func:`indexes_from_dir`), the checks' inputs
     and the searches. -> {row, kernel rows, failures}."""
     from leann_torch import LeannSearcher
@@ -2531,7 +2561,7 @@ def _family_path(torch, dev, workdir: str, tag: str, write_checkpoint, chunks, q
     del tok_ids
     # a fresh reader on the non-ASCII sample: the grapheme, Unicode and byte paths
     sample = nonascii_sample(chunks, NONASCII_TEXTS)
-    (s_ids, s_mask), nonascii_s = _timed(lambda: JsonTokenizer(ckpt, max_length=128).encode_batch(sample))
+    (s_ids, s_mask), nonascii_s = _timed(lambda: type(enc.tokenizer)(ckpt, max_length=128).encode_batch(sample))
     s_real = s_ids[s_mask.astype(bool)]
     nonascii = {"texts": len(sample), "chars": sum(map(len, sample)), "s": nonascii_s,
                 "unk_share": float((s_real == enc.tokenizer.unk_id).mean()),
@@ -3287,6 +3317,201 @@ def phase_parallel(torch, dev, workdir: str, main: dict):
     return kr, launches
 
 
+# phase 15: checkpoints whose only tokenizer files are the slow ones
+# transformers converts, read by the port's own converters
+CAMEMBERT = dict(vocab_size=32005, dim=768, n_layers=12, n_heads=12, mlp_dim=3072, max_len=514)
+CAMEMBERT_HEAD = 5  # CamembertConverter's pieces before the model's pieces[1:]; <mask> comes after them
+
+
+def _pb_varint(n: int) -> bytes:
+    out = bytearray()
+    while True:
+        b = n & 0x7F
+        n >>= 7
+        if n:
+            out.append(b | 0x80)
+        else:
+            out.append(b)
+            return bytes(out)
+
+
+def _pb_field(num: int, wire: int, payload: bytes) -> bytes:
+    """A protobuf field: its key, then a varint (wire 0), 4 bytes (wire 5)
+    or a length and the bytes (wire 2)."""
+    key = _pb_varint(num << 3 | wire)
+    return key + (_pb_varint(len(payload)) + payload if wire == 2 else payload)
+
+
+def spm_model_bytes(pieces, charsmap: bytes = b"", model_type: int = 1, add_dummy_prefix: bool = True) -> bytes:
+    """A SentencePiece ``ModelProto`` in protobuf's wire format, written by
+    hand (the card's machine has no protobuf): ``pieces`` as (piece, score,
+    type) (field 1: piece 1, score 2 as a float, type 3), the trainer spec
+    (field 2: model_type 3, vocab_size 4, unk_id 40 = 0) and the normalizer
+    spec (field 3: name 1, precompiled_charsmap 2, add_dummy_prefix 3)."""
+    import struct
+
+    out = bytearray()
+    for piece, score, typ in pieces:
+        body = (_pb_field(1, 2, piece.encode("utf-8")) + _pb_field(2, 5, struct.pack("<f", score))
+                + _pb_field(3, 0, _pb_varint(typ)))
+        out += _pb_field(1, 2, body)
+    out += _pb_field(2, 2, _pb_field(3, 0, _pb_varint(model_type)) + _pb_field(4, 0, _pb_varint(len(pieces)))
+                     + _pb_field(40, 0, _pb_varint(0)))
+    out += _pb_field(3, 2, _pb_field(1, 2, b"nmt_nfkc" if charsmap else b"identity") + _pb_field(2, 2, charsmap)
+                     + _pb_field(3, 0, _pb_varint(int(add_dummy_prefix))))
+    return bytes(out)
+
+
+def camembert_pieces(n_pieces: int) -> list:
+    """The (piece, score, type) of phase 15's SentencePiece Unigram of
+    ``n_pieces`` pieces, with fairseq's head: <unk> unknown, <s> and </s>
+    control; the pieces that cover ``synth_corpus`` words: ▁w0..▁w19999
+    whole, ▁w, ▁g, ▁d, digits and digit pairs, letters; seeded fillers no
+    corpus word reaches."""
+    small = ["▁", "▁w", "▁g", "▁d"] + [f"{i:02d}" for i in range(100)] + [str(i) for i in range(10)]
+    small += list("abcdefghijklmnopqrstuvwxyz")
+    scores = {"▁": -10.0, "▁w": -9.5, "▁g": -9.0, "▁d": -9.0}
+    pieces = [("<unk>", 0.0, 2), ("<s>", 0.0, 3), ("</s>", 0.0, 3)]
+    pieces += [(p, scores.get(p, -10.0 if len(p) == 2 else -11.0), 1) for p in small]
+    pieces += [(f"▁w{i}", -8.0, 1) for i in range(min(20_000, n_pieces - len(pieces)))]
+    return pieces + [(f"▁f{i}", -12.0, 1) for i in range(n_pieces - len(pieces))]
+
+
+def camembert_tokenizer_files(path: str, n_pieces: int) -> dict:
+    """CamemBERT's tokenizer as its checkpoints ship it: only
+    ``sentencepiece.bpe.model`` (:func:`camembert_pieces` with the
+    :func:`nmt_nfkc_rules` charsmap) and a ``tokenizer_config.json`` naming
+    ``CamembertTokenizer``. -> {pieces, whole words}."""
+    pieces = camembert_pieces(n_pieces)
+    with open(os.path.join(path, "sentencepiece.bpe.model"), "wb") as f:
+        f.write(spm_model_bytes(pieces, darts_blob(nmt_nfkc_rules())))
+    _write_json(os.path.join(path, "tokenizer_config.json"), {"tokenizer_class": "CamembertTokenizer",
+                                                              "model_max_length": 512})
+    return {"pieces": len(pieces), "whole_words": sum(p.startswith("▁w") and p[2:].isdigit() for p, _, _ in pieces)}
+
+
+def camembert_tokenizer_json(path: str, n_pieces: int) -> None:
+    """The ``tokenizer.json`` that ``transformers``' ``CamembertConverter``
+    makes of :func:`camembert_tokenizer_files`' model, written out here:
+    the vocab <s>NOTUSED, <pad>, </s>NOTUSED, <unk>, <unk>NOTUSED (-100),
+    then the pieces after <unk>, then <mask>; unknown id 3; the charsmap as
+    ``Precompiled``, Strip(right), Replace(" {2,}", "▁"); Metaspace "▁"
+    always; the template "<s> $A </s>" with CamemBERT's ids (4 + the piece's
+    id: 5 and 6); the head and control pieces as special added tokens."""
+    pieces = camembert_pieces(n_pieces)
+    head = [["<s>NOTUSED", 0.0], ["<pad>", 0.0], ["</s>NOTUSED", 0.0], ["<unk>", 0.0], ["<unk>NOTUSED", -100.0]]
+    vocab = head + [[p, score] for p, score, _ in pieces[1:]] + [["<mask>", 0.0]]
+    specials = [(p, i) for i, (p, _) in enumerate(head)] + [
+        (p, CAMEMBERT_HEAD - 1 + i) for i, (p, _, typ) in enumerate(pieces) if typ == 3]
+    meta = {"type": "Metaspace", "replacement": "▁", "prepend_scheme": "always", "split": True}
+    _write_json(os.path.join(path, "tokenizer.json"), {
+        "version": "1.0", "truncation": None, "padding": None,
+        "added_tokens": [_added(p, i) for p, i in specials] + [_added("<mask>", len(vocab) - 1, lstrip=True)],
+        "normalizer": {"type": "Sequence", "normalizers": [
+            {"type": "Precompiled", "precompiled_charsmap": base64.b64encode(darts_blob(nmt_nfkc_rules())).decode()},
+            {"type": "Strip", "strip_left": False, "strip_right": True},
+            {"type": "Replace", "pattern": {"Regex": " {2,}"}, "content": "▁"}]},
+        "pre_tokenizer": meta,
+        "post_processor": {"type": "TemplateProcessing",
+                           "single": [{"SpecialToken": {"id": "<s>", "type_id": 0}},
+                                      {"Sequence": {"id": "A", "type_id": 0}},
+                                      {"SpecialToken": {"id": "</s>", "type_id": 0}}],
+                           "pair": [], "special_tokens": {"<s>": {"id": "<s>", "ids": [5], "tokens": ["<s>"]},
+                                                          "</s>": {"id": "</s>", "ids": [6], "tokens": ["</s>"]}}},
+        "decoder": meta,
+        "model": {"type": "Unigram", "unk_id": 3, "vocab": vocab, "byte_fallback": False},
+    })
+    _write_json(os.path.join(path, "tokenizer_config.json"), {"tokenizer_class": "CamembertTokenizer"})
+
+
+def camembert_checkpoint(path: str, widths: "dict | None" = None) -> dict:
+    """A checkpoint directory at almanach/camembert-base's widths (or
+    ``widths``) as a ``CamembertForMaskedLM`` saves it
+    (:func:`roberta_masked_lm`) whose only tokenizer file is
+    ``sentencepiece.bpe.model`` (:func:`camembert_tokenizer_files`)."""
+    widths = widths or CAMEMBERT
+    config = roberta_masked_lm(path, widths, "camembert-seeded", 15, architectures=["CamembertForMaskedLM"],
+                               model_type="camembert", bos_token_id=5, eos_token_id=6)
+    return {**config, "tokenizer": camembert_tokenizer_files(path, widths["vocab_size"] - CAMEMBERT_HEAD)}
+
+
+def _same_ids(a, b) -> bool:
+    return bool(np.array_equal(a[0], b[0]) and np.array_equal(a[1], b[1]))
+
+
+def tokenizer_twins(workdir: str, model_dir: str, texts, n_pieces: int) -> dict:
+    """Phase 15(b), host only: (1) ``model_dir``'s sentencepiece model of
+    ``n_pieces`` pieces beside the ``tokenizer.json`` that
+    ``CamembertConverter`` makes of it, written out by
+    :func:`camembert_tokenizer_json` (tier-1 holds that file to the
+    converter's); (2) phase 12's distilroberta vocabulary and merges written
+    as ``vocab.json`` + ``merges.txt`` beside their ``tokenizer.json`` twin.
+    Each pair's ids and masks on ``texts`` at max_length 128. -> {pair:
+    equal, seconds}."""
+    from leann_torch.embeddings import tokenizer as tt
+    from leann_torch.embeddings.tokenizer_json import JsonTokenizer
+
+    out = {}
+    spm = tt.get_tokenizer(model_dir, max_length=128)
+    twin = os.path.join(workdir, "camembert_json_twin")
+    os.makedirs(twin, exist_ok=True)
+    camembert_tokenizer_json(twin, n_pieces)
+    (a, a_s), (b, b_s) = _timed(lambda: spm.encode_batch(texts)), _timed(
+        lambda: JsonTokenizer(twin, max_length=128).encode_batch(texts))
+    out["spm_vs_tokenizer_json"] = {"equal": _same_ids(a, b), "model_s": a_s, "json_s": b_s}
+    json_dir, files_dir = os.path.join(workdir, "roberta_json"), os.path.join(workdir, "roberta_files")
+    for d in (json_dir, files_dir):
+        os.makedirs(d, exist_ok=True)
+    roberta_tokenizer_files(json_dir, DISTILROBERTA["vocab_size"])
+    with open(os.path.join(json_dir, "tokenizer.json"), encoding="utf-8") as f:
+        model = json.load(f)["model"]
+    _write_json(os.path.join(files_dir, "vocab.json"), model["vocab"])
+    with open(os.path.join(files_dir, "merges.txt"), "w", encoding="utf-8") as f:
+        f.write("#version: 0.2\n" + "".join(f"{a} {b}\n" for a, b in model["merges"]))
+    shutil.copy(os.path.join(json_dir, "tokenizer_config.json"), files_dir)
+    files = tt.get_tokenizer(files_dir, max_length=128)
+    (a, a_s), (b, b_s) = _timed(lambda: files.encode_batch(texts)), _timed(
+        lambda: JsonTokenizer(json_dir, max_length=128).encode_batch(texts))
+    out["bpe_files_vs_tokenizer_json"] = {"equal": _same_ids(a, b), "reader": type(files).__name__, "files_s": a_s,
+                                          "json_s": b_s}
+    return out
+
+
+def phase_tokenizer_files(torch, dev, workdir: str, chunks):
+    """Phase 15 -> (kernel rows by (kernel, path), launches by path)."""
+    from leann_torch.ops import knn_panel as kp
+    from leann_torch.ops.flat_topk import flat_topk
+
+    counters = (flat_topk, kp.knn_panel, kp.knn_panel_ext, kp.topk_merge)
+    launches = {}
+    t0 = time.time()
+    sub = chunks[:BPE_CHUNKS]
+    queries = [" ".join(sub[i].split()[:12]) for i in np.random.default_rng(15).choice(len(sub), 64, replace=False)]
+    a = _family_path(torch, dev, workdir, "camembert", camembert_checkpoint, sub, queries, counters, launches)
+    del a["tok"]
+    ckpt = os.path.join(workdir, "camembert")
+    n_pieces = CAMEMBERT["vocab_size"] - CAMEMBERT_HEAD
+    twins, twins_s = _timed(lambda: tokenizer_twins(workdir, ckpt, sub, n_pieces))
+    row = {**a["row"], "model": "camembert-base widths, seeded weights under roberta., sentencepiece.bpe.model only",
+           "tokenizer_files": sorted(f for f in os.listdir(ckpt) if f not in ("config.json", "model.safetensors")),
+           "twins": twins, "twins_s": twins_s, "phase_s": time.time() - t0}
+    emit({"phase": "tokenizer_files", **row})
+    failures = a["failures"]
+    if row["tokenizer"] != "SpmTokenizer" or row["tokenizer_files"] != ["sentencepiece.bpe.model",
+                                                                         "tokenizer_config.json"]:
+        failures.append(f"camembert: not the port's sentencepiece reader over a .model-only directory: "
+                        f"{row['tokenizer']}, {row['tokenizer_files']}")
+    for name, t in twins.items():
+        if not t["equal"]:
+            failures.append(f"{name}: the ids or masks differ on the {len(sub)} chunks")
+    if twins["bpe_files_vs_tokenizer_json"]["reader"] != "BpeFilesTokenizer":
+        failures.append(f"vocab.json + merges.txt went to {twins['bpe_files_vs_tokenizer_json']['reader']}")
+    if failures:
+        fail("; ".join(failures))
+    check_rows(a["kr"])
+    return a["kr"], launches
+
+
 def _timed(fn):
     """-> (``fn()``, its wall seconds on the host's clock)."""
     t = time.time()
@@ -3348,6 +3573,7 @@ def main() -> int:
         more.append(phase_multilingual(torch, dev, workdir, main_state["chunks"], main_state["queries"]))
         more.append(phase_apps(torch, dev, workdir, os.path.join(workdir, "surface", "docs"), main_state["chunks"]))
         more.append(phase_parallel(torch, dev, workdir, main_state))
+        more.append(phase_tokenizer_files(torch, dev, workdir, main_state["chunks"]))
     for kr, more_launches in more:
         launches.update(more_launches)
         rows += [(name, path, r, b1 if name == "flat_topk" else b2) for (name, path), r in kr.items()]

@@ -498,17 +498,21 @@ def write_safetensors(tensors: Dict[str, np.ndarray], path: str) -> None:
 
 # the base model's key prefix in a checkpoint saved from a head
 # (``base_model_prefix``), by ``model_type``; ``bert.`` for any other type
-_BASE_PREFIX = {"roberta": "roberta.", "xlm-roberta": "roberta."}
+_BASE_PREFIX = {"roberta": "roberta.", "xlm-roberta": "roberta.", "camembert": "roberta.", "electra": "electra."}
 
 
 def _read_state_dict(path: str, model_type: str = "bert") -> Dict[str, np.ndarray]:
     """A checkpoint directory's weights -> {base model key: f32 array}, as
     ``AutoModel`` reads them: in a checkpoint saved from a head
     (``BertForMaskedLM``, ``RobertaForMaskedLM``) the base model's prefix is
-    stripped (``bert.``; ``roberta.`` for ``roberta`` and ``xlm-roberta``)
-    and the head's own tensors (``lm_head.*``, ``cls.*``) are dropped; the
-    pooler, which masked-mean pooling never reads, is dropped too; LayerNorm's
-    old ``gamma`` / ``beta`` names are renamed."""
+    stripped (``bert.``; ``roberta.`` for ``roberta``, ``xlm-roberta`` and
+    ``camembert``; ``electra.`` for ``electra``) and the head's own tensors
+    (``lm_head.*``, ``cls.*``, ``discriminator_predictions.*``,
+    ``generator_*``) are dropped; the pooler, which masked-mean pooling never
+    reads, is dropped too; LayerNorm's old ``gamma`` / ``beta`` names are
+    renamed. An ELECTRA whose ``embedding_size`` differs from its hidden size
+    (an ``embeddings_project`` between them) raises: the encoder has no such
+    projection, and the JAX package's loader cannot run one either."""
     st = os.path.join(path, "model.safetensors")
     bin_path = os.path.join(path, "pytorch_model.bin")
     if os.path.exists(st):
@@ -522,6 +526,9 @@ def _read_state_dict(path: str, model_type: str = "bert") -> Dict[str, np.ndarra
     prefix = _BASE_PREFIX.get(model_type, "bert.")
     if any(k.startswith(prefix) for k in sd):
         sd = {k[len(prefix):]: v for k, v in sd.items() if k.startswith(prefix)}
+    if any(k.startswith("embeddings_project.") for k in sd):
+        raise ValueError(f"{path}: an ELECTRA checkpoint with embeddings_project (embedding_size != hidden_size); "
+                         "the encoder has no projection between the embeddings and the first layer")
     out = {}
     for k, v in sd.items():
         if k.startswith("pooler."):

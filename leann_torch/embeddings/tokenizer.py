@@ -16,24 +16,28 @@ is a first-class build step. Two tokenizers:
   directory.
 
 A checkpoint's ``tokenizer.json`` (SentencePiece Unigram, byte-level BPE,
-WordPiece) is read by ``tokenizer_json.py``. :func:`get_tokenizer` picks
-one: ``tokenizer.json`` first, then ``vocab.txt``, a directory with no
-tokenizer files (or a model name) the hash tokenizer; a directory whose
-tokenizer files are of another kind raises.
+WordPiece, WordLevel) is read by ``tokenizer_json.py``. The slow files that
+``transformers`` converts are converted here as it converts them, and run
+by the same reader: a SentencePiece ``sentencepiece.bpe.model`` (XLM-R,
+CamemBERT; :class:`SpmTokenizer`, the file read by ``spm_model.py``) and
+RoBERTa's ``vocab.json`` + ``merges.txt`` (:class:`BpeFilesTokenizer`).
+:func:`get_tokenizer` routes a directory as ``AutoTokenizer`` does.
 """
 
 from __future__ import annotations
 
+import base64
 import hashlib
 import os
 import re
 import unicodedata
 from dataclasses import dataclass
-from typing import List, Sequence, Tuple
+from typing import Dict, List, Sequence, Tuple
 
 import numpy as np
 
-from .tokenizer_json import JsonTokenizer, _token_fields, read_config
+from . import spm_model
+from .tokenizer_json import JsonTokenizer, _not_ported, _read_json, _token_fields, read_config, tokenizer_class
 
 PAD_ID = 0
 CLS_ID = 1
@@ -106,9 +110,14 @@ class HashTokenizer:
         return ids, mask
 
 
-# tokenizer files that transformers converts and the port does not read
-_TOKENIZER_FILES = ("spiece.model", "sentencepiece.bpe.model", "tokenizer.model", "vocab.json", "merges.txt")
-_WORDPIECE_CLASSES = ("BertTokenizer", "BertTokenizerFast", "DistilBertTokenizer", "DistilBertTokenizerFast")
+# the slow tokenizer files transformers converts, and those each class reads
+_TOKENIZER_FILES = ("vocab.txt", "sentencepiece.bpe.model", "spiece.model", "tokenizer.model", "vocab.json",
+                    "merges.txt")
+_SPM_FILE = "sentencepiece.bpe.model"
+_SLOW_FILES = {"BertTokenizer": ("vocab.txt",), "DistilBertTokenizer": ("vocab.txt",),
+               "ElectraTokenizer": ("vocab.txt",), "RobertaTokenizer": ("vocab.json", "merges.txt"),
+               "XLMRobertaTokenizer": (_SPM_FILE,), "CamembertTokenizer": (_SPM_FILE,)}
+_WORDPIECE_CLASSES = tuple(c + f for c, files in _SLOW_FILES.items() if files == ("vocab.txt",) for f in ("", "Fast"))
 
 
 def bert_pipeline(tokens: Sequence[str], cfg: dict, path: str = "vocab.txt") -> dict:
@@ -148,21 +157,19 @@ def bert_pipeline(tokens: Sequence[str], cfg: dict, path: str = "vocab.txt") -> 
 
 
 class HFTokenizer(JsonTokenizer):
-    """BERT WordPiece over a local checkpoint directory's ``vocab.txt``: the
-    pipeline ``transformers`` converts it to (:func:`bert_pipeline`, from
-    ``vocab.txt`` and ``tokenizer_config.json``, then
-    ``special_tokens_map.json``), run by :class:`~.tokenizer_json.JsonTokenizer`.
-    It gives the ids and masks of ``BertTokenizerFast`` on the directory:
-    ``[CLS] ... [SEP]`` truncated and padded to ``max_length``, as int32."""
+    """WordPiece over a local checkpoint directory's ``vocab.txt`` (BERT,
+    DistilBERT, ELECTRA): the pipeline ``transformers`` converts it to
+    (:func:`bert_pipeline`, from ``vocab.txt`` and ``tokenizer_config.json``,
+    then ``special_tokens_map.json``), run by
+    :class:`~.tokenizer_json.JsonTokenizer`. It gives the ids and masks of
+    ``BertTokenizerFast`` on the directory: ``[CLS] ... [SEP]`` truncated
+    and padded to ``max_length``, as int32."""
 
     def __init__(self, path: str, max_length: int = 256):
         cfg = read_config(path)
-        cls_name = cfg.get("tokenizer_class")
+        cls_name = tokenizer_class(path, cfg)
         if cls_name is not None and cls_name not in _WORDPIECE_CLASSES:
-            from ..backends.common import not_ported
-
-            raise not_ported(f"the tokenizer class {cls_name!r} of {path} (only BERT WordPiece reads vocab.txt)",
-                             "ROADMAP.md §A #4")
+            raise _not_ported(f"the tokenizer class {cls_name!r} of {path} (only BERT-type WordPiece reads vocab.txt)")
         with open(os.path.join(path, "vocab.txt"), encoding="utf-8") as fh:
             tokens = [line.rstrip("\n") for line in fh]
         spec = bert_pipeline(tokens, cfg, os.path.join(path, "vocab.txt"))
@@ -170,26 +177,200 @@ class HFTokenizer(JsonTokenizer):
         self.lowercase, self.strip_accents = norm["lowercase"], norm["strip_accents"]
         self.chinese_chars = norm["handle_chinese_chars"]
         self._setup(spec, {**cfg, "do_lower_case": self.lowercase, "strip_accents": self.strip_accents},
-                    "BertTokenizer", path, max_length)
+                    cls_name or "BertTokenizer", path, max_length)
         self.vocab_size = len(tokens)
+
+
+# SpmConverter's subclasses for the classes whose weights the loader reads:
+# the pieces before the SentencePiece ones (with scores), how many leading
+# SentencePiece pieces they replace, the unknown piece's id
+_SPM_HEADS = {
+    "XLMRobertaTokenizer": ([("<s>", 0.0), ("<pad>", 0.0), ("</s>", 0.0), ("<unk>", 0.0)], 3, 3),
+    "CamembertTokenizer": ([("<s>NOTUSED", 0.0), ("<pad>", 0.0), ("</s>NOTUSED", 0.0), ("<unk>", 0.0),
+                            ("<unk>NOTUSED", -100.0)], 1, 3),
+}
+
+
+def _spm_special_id(cls_name: str, proto: spm_model.ModelProto, token: str, path: str) -> int:
+    """The slow class's ``convert_tokens_to_ids(token)`` for ``<s>`` and
+    ``</s>``: XLM-R's fairseq ids 0 and 2; CamemBERT's ``4 +`` the piece's
+    SentencePiece id (its unknown id 3 when that id is 0)."""
+    if cls_name == "XLMRobertaTokenizer":
+        return {"<s>": 0, "</s>": 2}[token]
+    at = next((i for i, p in enumerate(proto.pieces) if p.piece == token), None)
+    if at is None:
+        raise ValueError(f"{path} has no piece {token!r}, which CamemBERT's template needs")
+    return 4 + at if at else 3
+
+
+def spm_pipeline(proto: spm_model.ModelProto, cls_name: str, path: str = _SPM_FILE) -> dict:
+    """The ``tokenizer.json`` that ``transformers``' ``SpmConverter`` makes
+    of a SentencePiece Unigram model for ``cls_name`` (its
+    ``XLMRobertaConverter`` / ``CamembertConverter``):
+
+    * the vocab: the class's head pieces, then the model's pieces after the
+      ones they replace (XLM-R: ``pieces[3:]``; CamemBERT: ``pieces[1:]``,
+      behind ``<unk>NOTUSED`` at -100), then ``<mask>``; unknown id 3;
+      ``byte_fallback`` off (neither converter handles it);
+    * the normalizer: ``Precompiled`` when the charsmap is not empty, then
+      ``Strip`` on the right and ``Replace(" {2,}", "▁")``;
+    * ``Metaspace`` "▁" with the prepend scheme "always" (neither slow class
+      has ``add_prefix_space`` or ``legacy``, so the tokenizer config plays
+      no part, and the model's ``add_dummy_prefix`` and
+      ``remove_extra_whitespaces`` are not read);
+    * the template ``<s> $A </s>`` with the slow class's ids
+      (:func:`_spm_special_id`);
+    * the control (type 3, special) and user-defined (type 4) pieces as
+      added tokens matched on the raw text.
+
+    A BPE-type model raises ``not_ported`` (its merges come from
+    ``sentencepiece``'s own extractor); a word or char model raises, as in
+    ``transformers``; so does a class outside the two."""
+    if cls_name not in _SPM_HEADS:
+        raise _not_ported(f"the tokenizer class {cls_name!r} of {path} (a SentencePiece model is read for XLM-R and "
+                          "CamemBERT, the classes whose weights the loader reads)")
+    if proto.model_type == spm_model.BPE:
+        raise _not_ported(f"{path}, a SentencePiece model of BPE type (transformers takes its merges from "
+                          "sentencepiece's own extractor)")
+    if proto.model_type != spm_model.UNIGRAM:
+        raise ValueError(f"{path}: a SentencePiece model of type {proto.model_type}; only Unigram and BPE convert")
+    head, skip, unk_id = _SPM_HEADS[cls_name]
+    vocab = [list(h) for h in head] + [[p.piece, p.score] for p in proto.pieces[skip:]] + [["<mask>", 0.0]]
+    ids = {p: i for i, (p, _) in enumerate(vocab)}  # a repeated piece: its last id, as the model's
+    added, seen, next_id = [], set(), len(vocab)
+    for p in proto.pieces:
+        if p.type in (spm_model.CONTROL, spm_model.USER_DEFINED) and p.piece not in seen:
+            seen.add(p.piece)
+            tid = ids.get(p.piece)
+            if tid is None:
+                tid, next_id = next_id, next_id + 1
+            added.append({"id": tid, "content": p.piece, "single_word": False, "lstrip": False, "rstrip": False,
+                          "normalized": False, "special": p.type == spm_model.CONTROL})
+    norm = [{"type": "Strip", "strip_left": False, "strip_right": True},
+            {"type": "Replace", "pattern": {"Regex": " {2,}"}, "content": "▁"}]
+    if proto.precompiled_charsmap:
+        norm.insert(0, {"type": "Precompiled",
+                        "precompiled_charsmap": base64.b64encode(proto.precompiled_charsmap).decode()})
+    special = {t: {"id": t, "ids": [_spm_special_id(cls_name, proto, t, path)], "tokens": [t]} for t in ("<s>", "</s>")}
+    return {
+        "version": "1.0",
+        "added_tokens": added,
+        "normalizer": {"type": "Sequence", "normalizers": norm},
+        "pre_tokenizer": {"type": "Metaspace", "replacement": "▁", "prepend_scheme": "always", "split": True},
+        "post_processor": {"type": "TemplateProcessing",
+                           "single": [{"SpecialToken": {"id": "<s>", "type_id": 0}},
+                                      {"Sequence": {"id": "A", "type_id": 0}},
+                                      {"SpecialToken": {"id": "</s>", "type_id": 0}}],
+                           "special_tokens": special},
+        "model": {"type": "Unigram", "unk_id": unk_id, "vocab": vocab, "byte_fallback": False},
+    }
+
+
+class SpmTokenizer(JsonTokenizer):
+    """A directory's ``sentencepiece.bpe.model`` (XLM-R, CamemBERT), read by
+    ``spm_model.py`` and run as the pipeline :func:`spm_pipeline` makes of
+    it: the ids and masks of the fast class ``transformers`` converts it
+    to."""
+
+    def __init__(self, path: str, max_length: int = 256):
+        cfg = read_config(path)
+        cls_name = tokenizer_class(path, cfg)
+        file = os.path.join(path, _SPM_FILE)
+        self.proto = spm_model.read_model_file(file)
+        self._setup(spm_pipeline(self.proto, cls_name, file), cfg, cls_name, path, max_length)
+
+
+def read_merges(text: str) -> List[Tuple[str, ...]]:
+    """``merges.txt`` as ``RobertaTokenizer`` reads it: the lines between
+    the first (the ``#version`` header) and the last (empty after the final
+    newline), so a file without the header loses its first merge, as in
+    ``transformers``; a merge listed twice keeps its first rank."""
+    merges = [tuple(line.split()) for line in text.split("\n")[1:-1]]
+    bad = [m for m in merges if len(m) != 2]
+    if bad:
+        raise ValueError(f"merges.txt holds lines that are not two tokens: {bad[:3]}")
+    return list(dict.fromkeys(merges))
+
+
+def bpe_files_pipeline(vocab: Dict[str, int], merges: Sequence[Tuple[str, str]], cfg: dict,
+                       path: str = "vocab.json") -> dict:
+    """The ``tokenizer.json`` that ``transformers``' ``RobertaConverter``
+    makes of ``vocab.json`` + ``merges.txt``: ``ByteLevel`` with the
+    config's ``add_prefix_space`` (default false), ``BPE`` with no unknown
+    token, prefix or suffix, and ``RobertaProcessing`` with the config's
+    CLS and SEP tokens. Raises if the vocab lacks them."""
+    cls, sep = (_token_fields(cfg.get(f"{k}_token"))[0] or d for k, d in (("cls", "<s>"), ("sep", "</s>")))
+    missing = [t for t in (cls, sep) if t not in vocab]
+    if missing:
+        raise ValueError(f"{path} lacks the special tokens {missing}")
+    return {
+        "version": "1.0",
+        "added_tokens": [],
+        "normalizer": None,
+        "pre_tokenizer": {"type": "ByteLevel", "add_prefix_space": bool(cfg.get("add_prefix_space", False)),
+                          "trim_offsets": True, "use_regex": True},
+        "post_processor": {"type": "RobertaProcessing", "sep": [sep, vocab[sep]], "cls": [cls, vocab[cls]]},
+        "model": {"type": "BPE", "dropout": None, "unk_token": None, "continuing_subword_prefix": "",
+                  "end_of_word_suffix": "", "fuse_unk": False, "byte_fallback": False, "vocab": vocab,
+                  "merges": [list(m) for m in merges]},
+    }
+
+
+class BpeFilesTokenizer(JsonTokenizer):
+    """RoBERTa's ``vocab.json`` + ``merges.txt``, run as the pipeline
+    :func:`bpe_files_pipeline` makes of them: the ids and masks of
+    ``RobertaTokenizerFast`` on the directory."""
+
+    def __init__(self, path: str, max_length: int = 256):
+        cfg = read_config(path)
+        vocab = _read_json(os.path.join(path, "vocab.json"))
+        with open(os.path.join(path, "merges.txt"), encoding="utf-8") as f:
+            merges = read_merges(f.read())
+        spec = bpe_files_pipeline(vocab, merges, cfg, os.path.join(path, "vocab.json"))
+        self._setup(spec, cfg, "RobertaTokenizer", path, max_length)
+
+
+_READERS = {("vocab.txt",): HFTokenizer, ("vocab.json", "merges.txt"): BpeFilesTokenizer, (_SPM_FILE,): SpmTokenizer}
+
+
+def slow_files_tokenizer(path: str, max_length: int = 256) -> JsonTokenizer:
+    """A directory with no ``tokenizer.json``: the reader of the slow files
+    its tokenizer class reads (a ``vocab.txt`` with no class: BERT). A
+    class outside ``_SLOW_FILES``, no class, or a class whose files are
+    missing raises ``not_ported``: ``AutoTokenizer`` cannot read such a
+    directory either, or reads it for a model the loader does not load."""
+    found = [f for f in _TOKENIZER_FILES if os.path.exists(os.path.join(path, f))]
+    cls_name = tokenizer_class(path, read_config(path))
+    if cls_name is None and "vocab.txt" in found:
+        cls_name = "BertTokenizer"
+    need = _SLOW_FILES.get(cls_name)
+    if need is None or not all(f in found for f in need):
+        if cls_name is None:
+            why = "no tokenizer class"
+        elif need is None:
+            why = f"the class {cls_name!r}, whose checkpoints the loader does not read"
+        else:
+            why = f"the class {cls_name!r}, which reads {' + '.join(need)}"
+        raise _not_ported(f"the tokenizer of {path} ({', '.join(found)}, no tokenizer.json; {why})")
+    return _READERS[need](path, max_length=max_length)
 
 
 _TOKENIZER_CACHE: dict = {}
 
 
 def get_tokenizer(model_name: str, vocab_size: int = 32768, max_length: int = 256):
-    """The tokenizer for ``model_name``, routed as ``AutoTokenizer`` prefers
-    the fast file:
+    """The tokenizer for ``model_name``, routed in ``AutoTokenizer``'s order:
 
     * a local directory with ``tokenizer.json``: the port's reader of it
-      (:class:`~.tokenizer_json.JsonTokenizer`: Unigram, BPE or WordPiece;
-      another component raises, not ported);
-    * else a directory with ``vocab.txt``: :class:`HFTokenizer` (a
-      ``vocab.txt`` that cannot be read raises);
-    * else a directory with only a sentencepiece model or ``vocab.json`` +
-      ``merges.txt`` (which ``transformers`` converts): raises, not ported;
+      (:class:`~.tokenizer_json.JsonTokenizer`; a component it does not read
+      raises, not ported);
+    * else a directory with a slow tokenizer file: the reader of the files
+      its class reads (:func:`slow_files_tokenizer`: ``vocab.txt``,
+      ``sentencepiece.bpe.model`` or ``vocab.json`` + ``merges.txt``);
     * a directory with no tokenizer files, or a model name: the hash
-      tokenizer at ``vocab_size``, as in the JAX package.
+      tokenizer at ``vocab_size``, as in the JAX package. A directory whose
+      files cannot be read raises: the port never falls back to the hash
+      tokenizer there.
     """
     key = (model_name, vocab_size, max_length)
     if key in _TOKENIZER_CACHE:
@@ -198,15 +379,8 @@ def get_tokenizer(model_name: str, vocab_size: int = 32768, max_length: int = 25
     if os.path.isdir(model_name):
         if os.path.exists(os.path.join(model_name, "tokenizer.json")):
             tok = JsonTokenizer(model_name, max_length=max_length)
-        elif os.path.exists(os.path.join(model_name, "vocab.txt")):
-            tok = HFTokenizer(model_name, max_length=max_length)
-        else:
-            found = [f for f in _TOKENIZER_FILES if os.path.exists(os.path.join(model_name, f))]
-            if found:
-                from ..backends.common import not_ported
-
-                raise not_ported(f"the tokenizer of {model_name} ({', '.join(found)}, no tokenizer.json or vocab.txt)",
-                                 "ROADMAP.md §A #4")
+        elif any(os.path.exists(os.path.join(model_name, f)) for f in _TOKENIZER_FILES):
+            tok = slow_files_tokenizer(model_name, max_length=max_length)
     if tok is None:
         tok = HashTokenizer(vocab_size=vocab_size, max_length=max_length)
     _TOKENIZER_CACHE[key] = tok

@@ -12,14 +12,19 @@ called with ``padding="max_length", truncation=True, max_length=L``:
    beside a match and ``single_word`` refusing a match inside a word);
 2. the **normalizer** runs on each piece between added tokens: ``Sequence``,
    ``Precompiled`` (SentencePiece's compiled rules, looked up per grapheme
-   cluster), ``Replace``, ``Nmt``, ``NFC`` / ``NFD`` / ``NFKC`` / ``NFKD``,
-   ``Lowercase``, ``StripAccents``, ``Strip``, ``BertNormalizer``;
+   cluster), ``Replace``, ``Prepend``, ``Nmt``, ``NFC`` /
+   ``NFD`` / ``NFKC`` / ``NFKD``, ``Lowercase``, ``StripAccents``,
+   ``Strip``, ``BertNormalizer``;
 3. the **pre-tokenizer** splits the pieces into words: ``Sequence``,
-   ``Metaspace``, ``ByteLevel`` (the GPT-2 split written as a scanner over
-   ``unicodedata`` categories), ``WhitespaceSplit``, ``Whitespace``,
-   ``BertPreTokenizer``;
+   ``Metaspace``, ``ByteLevel`` (the GPT-2 split), ``WhitespaceSplit``,
+   ``Whitespace``, ``BertPreTokenizer``, ``Digits``, ``Punctuation``,
+   ``Split`` (a string, or an Oniguruma regex translated to ``re`` by
+   :func:`onig_to_re`, its ``\\p{..}`` classes built from ``unicodedata``
+   at load; each split behaviour, ``invert``);
 4. the **model** maps each word to ids, memoised per word: ``Unigram``
-   (Viterbi over the piece scores), ``BPE`` (merges by rank), ``WordPiece``;
+   (Viterbi over the piece scores), ``BPE`` (merges by rank), ``WordPiece``,
+   ``WordLevel``; Unigram's and BPE's ``byte_fallback`` emit the ``<0xNN>``
+   pieces of what the vocab lacks;
 5. the content is cut to ``L`` less the **post-processor**'s special tokens
    (``TemplateProcessing``, ``RobertaProcessing``, ``BertProcessing``,
    ``ByteLevel``, ``Sequence``, or none), which are then added, and the row
@@ -27,18 +32,22 @@ called with ``padding="max_length", truncation=True, max_length=L``:
 
 BERT's own pieces (``bert_normalize``, ``bert_split``, ``wordpiece``) live
 here too: ``tokenizer.HFTokenizer`` runs a ``vocab.txt`` as the pipeline
-``transformers`` converts it to, through this class. Over ASCII text the
-BERT normalizer and pre-tokenizer, and ``Precompiled``, take one
-``str.translate`` or regex each.
+``transformers`` converts it to, through this class, and so do the
+converted pipelines of a SentencePiece ``.model`` and of ``vocab.json`` +
+``merges.txt`` (``tokenizer.py``). Over ASCII text the BERT normalizer and
+pre-tokenizer, and ``Precompiled``, take one ``str.translate`` or regex
+each.
 
 What ``transformers`` changes on load is done here too: the top-level
 ``ByteLevel`` pre-tokenizer takes ``add_prefix_space`` from
-``tokenizer_config.json`` (default false), a BERT tokenizer's
+``tokenizer_config.json`` (default false), a BERT-type tokenizer's
 ``BertNormalizer`` takes ``do_lower_case``, ``strip_accents`` and
-``tokenize_chinese_chars`` from it, and special tokens named there that the
-file lacks are added. Any other component type, and a tokenizer class other
-than BERT, DistilBERT, RoBERTa, XLM-R or the generic fast class, raises
-``not_ported`` naming it.
+``tokenize_chinese_chars`` from it, and special tokens named there (or by
+the class: CamemBERT's three ``NOTUSED`` tokens) that the file lacks are
+added. Another component type (of ``tokenizers``' own, ``UnicodeScripts``:
+``unicodedata`` has no Script property), BPE ``dropout`` above 0, and a
+tokenizer class other than BERT, DistilBERT, ELECTRA, RoBERTa, XLM-R,
+CamemBERT or the generic fast class, raise ``not_ported`` naming it.
 
 Unicode tables: Python's are Unicode 15; the ``tokenizers`` library's
 normalization and category tables are older, so a character assigned or
@@ -51,6 +60,7 @@ from __future__ import annotations
 import base64
 import functools
 import heapq
+import itertools
 import json
 import os
 import re
@@ -81,20 +91,28 @@ _CJK_RANGES = ((0x4E00, 0x9FFF), (0x3400, 0x4DBF), (0x20000, 0x2A6DF), (0x2A700,
                (0x2B740, 0x2B81F), (0x2B820, 0x2CEAF), (0xF900, 0xFAFF), (0x2F800, 0x2FA1F))
 # the tokenizer classes whose loading is reproduced here, and the model
 # types AutoTokenizer maps to them when tokenizer_config.json names none
-_CLASSES = ("BertTokenizer", "DistilBertTokenizer", "RobertaTokenizer", "XLMRobertaTokenizer", "PreTrainedTokenizer")
-_CLASS_OF_MODEL_TYPE = {"bert": "BertTokenizer", "distilbert": "DistilBertTokenizer",
-                        "roberta": "RobertaTokenizer", "xlm-roberta": "XLMRobertaTokenizer"}
+_CLASSES = ("BertTokenizer", "DistilBertTokenizer", "ElectraTokenizer", "RobertaTokenizer", "XLMRobertaTokenizer",
+            "CamembertTokenizer", "PreTrainedTokenizer")
+_CLASS_OF_MODEL_TYPE = {"bert": "BertTokenizer", "distilbert": "DistilBertTokenizer", "electra": "ElectraTokenizer",
+                        "roberta": "RobertaTokenizer", "xlm-roberta": "XLMRobertaTokenizer",
+                        "camembert": "CamembertTokenizer"}
+# the classes whose fast tokenizer sets BertNormalizer's options from the config
+_BERT_CLASSES = ("BertTokenizer", "DistilBertTokenizer", "ElectraTokenizer")
 _SPECIAL_NAMES = ("bos", "eos", "unk", "sep", "pad", "cls", "mask")
 _BERT_SPECIALS = {"unk": "[UNK]", "sep": "[SEP]", "pad": "[PAD]", "cls": "[CLS]", "mask": "[MASK]"}
 _ROBERTA_SPECIALS = {"bos": "<s>", "eos": "</s>", "sep": "</s>", "cls": "<s>", "unk": "<unk>", "pad": "<pad>",
                      "mask": "<mask>"}
 _CLASS_SPECIALS = {"BertTokenizer": _BERT_SPECIALS, "DistilBertTokenizer": _BERT_SPECIALS,
-                   "RobertaTokenizer": _ROBERTA_SPECIALS, "XLMRobertaTokenizer": _ROBERTA_SPECIALS,
+                   "ElectraTokenizer": _BERT_SPECIALS, "RobertaTokenizer": _ROBERTA_SPECIALS,
+                   "XLMRobertaTokenizer": _ROBERTA_SPECIALS, "CamembertTokenizer": _ROBERTA_SPECIALS,
                    "PreTrainedTokenizer": {}}
-# the mask token of the RoBERTa classes takes the space before it (XLM-R's
-# is matched on the normalized text)
-_CLASS_MASK = {"RobertaTokenizer": dict(lstrip=True, normalized=False),
-               "XLMRobertaTokenizer": dict(lstrip=True, normalized=True)}
+# the mask token of the RoBERTa classes takes the space before it and is
+# matched on the raw text (the fast classes make it special, which turns
+# normalization off)
+_CLASS_MASK = {c: dict(lstrip=True, normalized=False)
+               for c in ("RobertaTokenizer", "XLMRobertaTokenizer", "CamembertTokenizer")}
+# the additional special tokens a class adds when the config names none
+_CLASS_ADDITIONAL = {"CamembertTokenizer": ("<s>NOTUSED", "</s>NOTUSED", "<unk>NOTUSED")}
 _NMT = {**{c: None for c in (*range(0x01, 0x09), 0x0B, *range(0x0E, 0x20), 0x7F, 0x8F, 0x9F)},
         **{c: " " for c in (0x09, 0x0A, 0x0C, 0x0D, 0x1680, *range(0x200B, 0x2010), 0x2028, 0x2029, 0x2581,
                             0xFEFF, 0xFFFD)}}
@@ -141,14 +159,8 @@ def _is_word_char(ch: str) -> bool:
     return cat[0] in "LM" or cat in ("Nd", "Nl", "Pc") or ch in "\u200c\u200d"
 
 
-def _gpt2_class(ch: str) -> int:
-    """0 whitespace, 1 ``\\p{L}``, 2 ``\\p{N}``, 3 anything else."""
-    if ch in _WHITESPACE:
-        return 0
-    c = unicodedata.category(ch)[0]
-    return 1 if c == "L" else 2 if c == "N" else 3
-
-
+# GPT-2's pre-tokenizer split, the pattern tokenizers' ByteLevel runs
+GPT2_PATTERN = r"'s|'t|'re|'ve|'m|'ll|'d| ?\p{L}+| ?\p{N}+| ?[^\s\p{L}\p{N}]+|\s+(?!\S)|\s+"
 # the same pattern over ASCII text, where its classes are plain ranges (White_Space
 # in ASCII is space, \t, \n, \v, \f, \r; \x1c-\x1f are not, though Python's \s has them)
 _GPT2_ASCII = re.compile(r"'s|'t|'re|'ve|'m|'ll|'d| ?[A-Za-z]+| ?[0-9]+| ?[^ \t\n\x0b\x0c\rA-Za-z0-9]+"
@@ -156,43 +168,11 @@ _GPT2_ASCII = re.compile(r"'s|'t|'re|'ve|'m|'ll|'d| ?[A-Za-z]+| ?[0-9]+| ?[^ \t\
 
 
 def gpt2_split(s: str) -> List[str]:
-    """The GPT-2 pre-tokenizer split ``'s|'t|'re|'ve|'m|'ll|'d| ?\\p{L}+|
-    ?\\p{N}+| ?[^\\s\\p{L}\\p{N}]+|\\s+(?!\\S)|\\s+``: over ASCII text by
-    ``re`` with the classes spelled out, else by :func:`gpt2_scan`."""
-    return _GPT2_ASCII.findall(s) if s.isascii() else gpt2_scan(s)
-
-
-def gpt2_scan(s: str) -> List[str]:
-    """The GPT-2 split as a scanner over ``unicodedata`` categories:
-    Python's ``re`` has no ``\\p{..}`` and the card has no ``regex``. The
-    pattern covers every character, so the matches are the pieces."""
-    out, i, n = [], 0, len(s)
-    while i < n:
-        ch = s[i]
-        if ch == "'" and i + 1 < n:
-            if s[i + 1] in "stmd":
-                out.append(s[i : i + 2])
-                i += 2
-                continue
-            if s[i + 1 : i + 3] in ("re", "ve", "ll"):
-                out.append(s[i : i + 3])
-                i += 3
-                continue
-        j = i + 1 if ch == " " and i + 1 < n and s[i + 1] not in _WHITESPACE else i
-        k = _gpt2_class(s[j])
-        if k:  # ' ?' then a run of one class
-            e = j + 1
-            while e < n and _gpt2_class(s[e]) == k:
-                e += 1
-        else:  # whitespace: the run, less its last character before a non-space
-            e = i
-            while e < n and s[e] in _WHITESPACE:
-                e += 1
-            if e < n and e - i >= 2:
-                e -= 1
-        out.append(s[i:e])
-        i = e
-    return out
+    """The GPT-2 split (:data:`GPT2_PATTERN`): over ASCII text by ``re``
+    with the classes spelled out, else by the pattern translated by
+    :func:`compile_onig`. The pattern covers every character, so the
+    matches are the pieces."""
+    return _GPT2_ASCII.findall(s) if s.isascii() else compile_onig(GPT2_PATTERN).findall(s)
 
 
 def _bytes_to_unicode() -> Dict[int, str]:
@@ -214,6 +194,234 @@ def _byte_chars(w: str) -> str:
     """``w``'s UTF-8 bytes as GPT-2's printable characters (each byte read
     as the Latin-1 code point of its value, then mapped)."""
     return w.encode("utf-8").decode("latin-1").translate(_BYTE_CHARS)
+
+
+# ---------------------------------------------------------------------------
+# Oniguruma patterns in Python's re
+# ---------------------------------------------------------------------------
+
+# in Oniguruma's \w beside letters, marks, Nd, Nl and Pc: Latin-1's superscripts
+# and fractions, and the Alphabetic symbols (circled, squared, negative squared letters)
+_ONIG_WORD_EXTRA = ((0xB2, 0xB3), (0xB9, 0xB9), (0xBC, 0xBE), (0x24B6, 0x24E9), (0x1F130, 0x1F149),
+                    (0x1F150, 0x1F169), (0x1F170, 0x1F189))
+_CATEGORY_NAMES = {"Letter": "L", "Mark": "M", "Number": "N", "Punctuation": "P", "Symbol": "S", "Separator": "Z",
+                   "Other": "C"}
+
+
+@functools.lru_cache(maxsize=1)
+def _category_ranges() -> Dict[str, List[Tuple[int, int]]]:
+    """Each general category (``Lu``, ``Nd``, ...) -> its code point
+    ranges, from ``unicodedata``."""
+    out: Dict[str, List[Tuple[int, int]]] = {}
+    pos = 0
+    for cat, run in itertools.groupby(map(unicodedata.category, map(chr, range(0x110000)))):
+        n = sum(1 for _ in run)
+        out.setdefault(cat, []).append((pos, pos + n - 1))
+        pos += n
+    return out
+
+
+def _merge_ranges(ranges) -> List[Tuple[int, int]]:
+    out: List[Tuple[int, int]] = []
+    for lo, hi in sorted(ranges):
+        if out and lo <= out[-1][1] + 1:
+            out[-1] = (out[-1][0], max(out[-1][1], hi))
+        else:
+            out.append((lo, hi))
+    return out
+
+
+def _complement(ranges) -> List[Tuple[int, int]]:
+    out, nxt = [], 0
+    for lo, hi in ranges:
+        if lo > nxt:
+            out.append((nxt, lo - 1))
+        nxt = hi + 1
+    if nxt <= 0x10FFFF:
+        out.append((nxt, 0x10FFFF))
+    return out
+
+
+def _predicate_ranges(pred: Callable[[str], bool]) -> List[Tuple[int, int]]:
+    out, pos = [], 0
+    for keep, run in itertools.groupby(map(pred, map(chr, range(0x110000)))):
+        n = sum(1 for _ in run)
+        if keep:
+            out.append((pos, pos + n - 1))
+        pos += n
+    return out
+
+
+@functools.lru_cache(maxsize=None)
+def _class_ranges(name: str) -> Tuple[Tuple[int, int], ...]:
+    """The code point ranges of a property or shorthand class: a general
+    category or its major class (``\\p{L}``, ``\\p{Nd}``, ``\\p{Letter}``),
+    or Oniguruma's Unicode ``\\s`` (White_Space), ``\\w`` (letters, marks,
+    Nd, Nl, Pc and ``_ONIG_WORD_EXTRA``), ``\\d`` (Nd)."""
+    if name == "s":
+        return tuple(_merge_ranges((ord(c), ord(c)) for c in _WHITESPACE))
+    if name == "w":
+        return tuple(_merge_ranges(_predicate_ranges(lambda ch: _is_word_char(ch) and ch not in "\u200c\u200d")
+                                   + list(_ONIG_WORD_EXTRA)))
+    name = "Nd" if name == "d" else _CATEGORY_NAMES.get(name, name)
+    cats = _category_ranges()
+    if name in cats:
+        keys = [name]
+    elif len(name) == 1 and any(k.startswith(name) for k in cats):
+        keys = [k for k in cats if k.startswith(name)]
+    else:
+        raise _not_ported(f"the regex property \\p{{{name}}}")
+    return tuple(_merge_ranges(r for k in keys for r in cats[k]))
+
+
+def _ranges_re(ranges) -> str:
+    return "".join(f"\\U{lo:08x}" if lo == hi else f"\\U{lo:08x}-\\U{hi:08x}" for lo, hi in ranges)
+
+
+def onig_to_re(pattern: str) -> str:
+    """An Oniguruma pattern (``tokenizers``' ``Regex``, Ruby syntax) as a
+    Python ``re`` pattern with the same matches on assigned characters:
+    ``\\p{..}`` / ``\\P{..}`` / ``\\p{^..}`` and ``\\s \\w \\d`` (and their
+    negations) become explicit classes (Python's ``\\s`` and ``\\w`` differ
+    from Oniguruma's and it has no ``\\p``); compile with ``re.MULTILINE``
+    (Ruby's ``^`` and ``$`` are line anchors). A character Python's Unicode
+    tables leave unassigned may differ."""
+    out: List[str] = []
+    i, n, depth = 0, len(pattern), 0
+    while i < n:
+        c = pattern[i]
+        if c == "\\" and i + 1 < n:
+            e = pattern[i + 1]
+            name = None
+            neg = False
+            if e in "pP":
+                neg = e == "P"
+                if i + 2 < n and pattern[i + 2] == "{":
+                    close = pattern.find("}", i + 3)
+                    if close < 0:
+                        raise _not_ported(f"the regex {pattern!r} (an unclosed \\{e}{{)")
+                    name = pattern[i + 3 : close]
+                    if name.startswith("^"):
+                        neg, name = not neg, name[1:]
+                    i = close + 1
+                else:  # Ruby syntax has no \pL
+                    raise _not_ported(f"the regex {pattern!r} (\\{e} without braces)")
+            elif e in "sSwWdD":
+                name, neg = e.lower(), e.isupper()
+                i += 2
+            if name is not None:
+                ranges = _class_ranges(name)
+                if neg:
+                    ranges = tuple(_complement(ranges))
+                out.append(_ranges_re(ranges) if depth else f"[{_ranges_re(ranges)}]")
+                continue
+            out.append(pattern[i : i + 2])
+            i += 2
+            continue
+        if depth:
+            if c == "[":
+                raise _not_ported(f"the regex {pattern!r} (a nested character class)")
+            if c == "]" and not (out and out[-1] in ("[", "[^")):
+                depth = 0
+            out.append(c)
+            i += 1
+            continue
+        if c == "[":
+            depth = 1
+            if pattern.startswith("[^", i):
+                out.append("[^")
+                i += 2
+            else:
+                out.append("[")
+                i += 1
+            if i < n and pattern[i] == "]":  # a leading ] is a literal
+                out.append("\\]")
+                i += 1
+            continue
+        out.append(c)
+        i += 1
+    return "".join(out)
+
+
+@functools.lru_cache(maxsize=256)
+def compile_onig(pattern: str) -> "re.Pattern":
+    try:
+        return re.compile(onig_to_re(pattern), re.MULTILINE)
+    except re.error as e:
+        raise _not_ported(f"the regex {pattern!r} ({e})")
+
+
+def _find_matches(rx: "re.Pattern", s: str) -> List[Tuple[int, int, bool]]:
+    """The pieces of ``s`` between and at ``rx``'s matches, in order:
+    (start, stop, is a match). As Oniguruma's iterator, an empty match
+    right where the last one ended is skipped."""
+    out: List[Tuple[int, int, bool]] = []
+    prev, last_end = 0, -1
+    for m in rx.finditer(s):
+        a, b = m.span()
+        if a == b and a == last_end:
+            continue
+        if prev != a:
+            out.append((prev, a, False))
+        out.append((a, b, True))
+        prev = last_end = b
+    if prev != len(s):
+        out.append((prev, len(s), False))
+    return out
+
+
+def _char_matches(pred: Callable[[str], bool], s: str) -> List[Tuple[int, int, bool]]:
+    """Each character ``pred`` takes a match of its own, the runs between
+    them one piece each (``tokenizers``' pattern of a ``Fn(char)``)."""
+    out: List[Tuple[int, int, bool]] = []
+    last = 0
+    for i, ch in enumerate(s):
+        if pred(ch):
+            if last < i:
+                out.append((last, i, False))
+            out.append((i, i + 1, True))
+            last = i + 1
+    if last < len(s):
+        out.append((last, len(s), False))
+    return out
+
+
+def split_by(s: str, matches: List[Tuple[int, int, bool]], behavior: str) -> List[str]:
+    """``s`` cut at ``matches`` as ``NormalizedString::split`` does under
+    ``behavior``: a match removed, alone, joined to the piece before or
+    after it, or runs of matches (and of non-matches) kept together; no
+    empty piece is kept."""
+    if behavior == "Removed":
+        spans = [(a, b) for a, b, m in matches if not m]
+    elif behavior == "Isolated":
+        spans = [(a, b) for a, b, _ in matches]
+    elif behavior in ("Contiguous", "MergedWithPrevious"):
+        spans, prev = [], False
+        for a, b, m in matches:
+            join = m == prev if behavior == "Contiguous" else (m and not prev)
+            if join and spans:
+                spans[-1] = (spans[-1][0], b)
+            else:
+                spans.append((a, b))
+            prev = m
+    elif behavior == "MergedWithNext":
+        spans, prev = [], False
+        for a, b, m in reversed(matches):
+            if m and not prev and spans:
+                spans[-1] = (a, spans[-1][1])
+            else:
+                spans.append((a, b))
+            prev = m
+        spans.reverse()
+    else:
+        raise ValueError(f"a split behavior {behavior!r}: tokenizers has Removed, Isolated, MergedWithPrevious, "
+                         "MergedWithNext and Contiguous")
+    return [s[a:b] for a, b in spans if b > a]
+
+
+def _is_numeric(ch: str) -> bool:
+    """Rust's ``char::is_numeric``: the categories Nd, Nl, No."""
+    return unicodedata.category(ch)[0] == "N"
 
 
 # ---------------------------------------------------------------------------
@@ -480,10 +688,7 @@ def _replace(spec: dict) -> Callable[[str], str]:
     if "String" in pattern:
         lit = pattern["String"]
         return lambda s: s.replace(lit, content) if lit else s
-    try:
-        rx = re.compile(pattern["Regex"])
-    except re.error as e:
-        raise _not_ported(f"the Replace pattern {pattern['Regex']!r} ({e})")
+    rx = compile_onig(pattern["Regex"])
     return lambda s: rx.sub(lambda _m: content, s)
 
 
@@ -518,6 +723,9 @@ def make_normalizer(spec: Optional[dict]) -> Optional[Callable[[str], str]]:
         return lambda s: s.translate(_NMT)
     if kind == "Replace":
         return _replace(spec)
+    if kind == "Prepend":
+        prepend = spec["prepend"]
+        return lambda s: prepend + s if s else s
     if kind == "Precompiled":
         return Precompiled(base64.b64decode(spec.get("precompiled_charsmap") or ""))
     if kind == "BertNormalizer":
@@ -625,6 +833,8 @@ def make_pre_tokenizer(spec: Optional[dict]) -> PreTokenizer:
         return metaspace
     if kind == "ByteLevel":
         prefix_space, use_regex = spec.get("add_prefix_space", True), spec.get("use_regex", True)
+        if use_regex:
+            compile_onig(GPT2_PATTERN)  # its classes built at load, not on the first non-ASCII text
 
         def byte_level(pieces: List[str], first: bool) -> Tuple[List[str], bool]:
             out: List[str] = []
@@ -646,7 +856,36 @@ def make_pre_tokenizer(spec: Optional[dict]) -> PreTokenizer:
         return _split_each(_whitespace_words)
     if kind == "BertPreTokenizer":
         return _split_each(bert_split)
+    if kind == "Digits":
+        behavior = "Isolated" if spec.get("individual_digits") else "Contiguous"
+        return _split_each(lambda s: split_by(s, _char_matches(_is_numeric, s), behavior))
+    if kind == "Punctuation":
+        behavior = spec.get("behavior", "Isolated")
+        return _split_each(lambda s: split_by(s, _char_matches(_is_punct, s), behavior))
+    if kind == "Split":
+        return _split_each(_split_pattern(spec))
+    if kind == "UnicodeScripts":
+        raise _not_ported("the UnicodeScripts pre-tokenizer (Python's unicodedata has no Script property)")
     raise _not_ported(f"the pre-tokenizer type {kind!r}")
+
+
+def _split_pattern(spec: dict) -> Callable[[str], List[str]]:
+    """``Split``: the pattern's matches (a ``String`` matched literally, a
+    ``Regex`` through :func:`compile_onig`), flipped with ``invert``, cut
+    under ``behavior``."""
+    pattern, behavior, invert = spec["pattern"], spec["behavior"], bool(spec.get("invert", False))
+    if "String" in pattern:
+        rx = re.compile(re.escape(pattern["String"]))
+    else:
+        rx = compile_onig(pattern["Regex"])
+
+    def split(s: str) -> List[str]:
+        matches = _find_matches(rx, s)
+        if invert:
+            matches = [(a, b, not m) for a, b, m in matches]
+        return split_by(s, matches, behavior)
+
+    return split
 
 
 # ---------------------------------------------------------------------------
@@ -660,11 +899,12 @@ class Unigram:
     """SentencePiece Unigram: the Viterbi path of highest summed score over
     every piece that matches at each position (shorter first; a tie keeps
     the earlier candidate), a character no single piece covers scored as
-    unknown, consecutive unknowns fused into one ``unk_id``."""
+    unknown, consecutive unknowns fused into one ``unk_id`` (with
+    ``byte_fallback``, into the ``<0xNN>`` pieces of their UTF-8 bytes when
+    the vocab holds each of them)."""
 
     def __init__(self, spec: dict):
-        if spec.get("byte_fallback"):
-            raise _not_ported("a Unigram model with byte_fallback")
+        self.byte_fallback = bool(spec.get("byte_fallback"))
         vocab = spec["vocab"]
         self.pieces: Dict[str, int] = {p: i for i, (p, _) in enumerate(vocab)}  # a repeated piece: its last id
         self.scores = [float(s) for _, s in vocab]
@@ -717,7 +957,31 @@ class Unigram:
             e = s
         if unk:
             out.append("".join(reversed(unk)))
-        return tuple(self.pieces.get(p, self.unk_id) for p in reversed(out))
+        if not self.byte_fallback:
+            return tuple(self.pieces.get(p, self.unk_id) for p in reversed(out))
+        ids: List[int] = []
+        for p in reversed(out):
+            v = self.pieces.get(p)
+            if v is None:
+                b = _byte_pieces(self.pieces, p)
+                if b is not None:
+                    ids.extend(b)
+                    continue
+                v = self.unk_id
+            ids.append(v)
+        return tuple(ids)
+
+
+def _byte_pieces(vocab: Dict[str, int], s: str) -> Optional[List[int]]:
+    """The ids of ``<0xNN>`` for each UTF-8 byte of ``s``, or None if the
+    vocab lacks one of them (byte fallback)."""
+    out = []
+    for b in s.encode("utf-8"):
+        v = vocab.get(f"<0x{b:02X}>")
+        if v is None:
+            return None
+        out.append(v)
+    return out
 
 
 class BPE:
@@ -728,13 +992,16 @@ class BPE:
     the pair of lowest rank (then leftmost) merges until none is left, as
     ``tokenizers``' priority queue does it. ``merges`` are ``"a b"`` strings
     or ``[a, b]`` pairs; ``ignore_merges`` takes a word found whole in the
-    vocab as one id."""
+    vocab as one id. With ``byte_fallback`` a symbol outside the vocab
+    becomes the ``<0xNN>`` pieces of its bytes (prefix and suffix included)
+    when the vocab holds each of them; a pending unknown is not flushed
+    before them, as in ``tokenizers``. ``dropout`` above 0 raises: merges
+    drawn at random on every call have no fixed ids to hold."""
 
     def __init__(self, spec: dict):
         if spec.get("dropout") not in (None, 0, 0.0):
-            raise _not_ported("a BPE model with dropout")
-        if spec.get("byte_fallback"):
-            raise _not_ported("a BPE model with byte_fallback")
+            raise _not_ported(f"a BPE model with dropout {spec['dropout']} (merges drawn at random on every call)")
+        self.byte_fallback = bool(spec.get("byte_fallback"))
         self.vocab: Dict[str, int] = spec["vocab"]
         self.prefix = spec.get("continuing_subword_prefix")
         self.suffix = spec.get("end_of_word_suffix")
@@ -770,7 +1037,13 @@ class BPE:
                     syms.append(unk)
                     unk = None
                 syms.append(v)
-            elif self.unk_token is not None:
+                continue
+            if self.byte_fallback:
+                b = _byte_pieces(vocab, s)
+                if b is not None:
+                    syms.extend(b)
+                    continue
+            if self.unk_token is not None:
                 if self.unk_token not in vocab:
                     raise ValueError(f"the BPE unk_token {self.unk_token!r} is not in the vocab")
                 if unk is not None and not self.fuse_unk:
@@ -782,6 +1055,8 @@ class BPE:
 
     def _merge(self, c: List[int]) -> Tuple[int, ...]:
         merges, n = self.merges, len(c)
+        if not n:  # every character dropped (no unk_token)
+            return ()
         nxt = list(range(1, n + 1))
         nxt[-1] = -1
         prv = list(range(-1, n - 1))
@@ -815,6 +1090,24 @@ class BPE:
         return tuple(v for v, a in zip(c, alive) if a)
 
 
+class WordLevel:
+    """Each word's id in the vocab, else the ``unk_token``'s."""
+
+    def __init__(self, spec: dict):
+        self.vocab: Dict[str, int] = spec["vocab"]
+        self.unk_token = spec.get("unk_token", "<unk>")
+        self.unk_id = self.vocab.get(self.unk_token)
+        self.size = len(self.vocab)
+
+    def __call__(self, w: str) -> Tuple[int, ...]:
+        if not w:
+            return ()
+        v = self.vocab.get(w, self.unk_id)
+        if v is None:
+            raise ValueError(f"the WordLevel unk_token {self.unk_token!r} is not in the vocab (for {w!r})")
+        return (v,)
+
+
 class WordPiece:
     """Greedy longest-match WordPiece over the file's vocab
     (:func:`wordpiece`)."""
@@ -841,6 +1134,8 @@ def make_model(spec: Optional[dict]):
         return BPE(spec)
     if kind == "WordPiece":
         return WordPiece(spec)
+    if kind == "WordLevel":
+        return WordLevel(spec)
     raise _not_ported(f"the model type {kind!r}" if kind else "a tokenizer.json with no model")
 
 
@@ -942,6 +1237,18 @@ def _token_fields(value) -> Tuple[Optional[str], dict]:
 # The tokenizer
 # ---------------------------------------------------------------------------
 
+def tokenizer_class(path: str, cfg: dict) -> Optional[str]:
+    """The tokenizer class ``AutoTokenizer`` picks for a directory, less
+    ``Fast``: the config's ``tokenizer_class``, else the one of
+    ``config.json``'s ``model_type``; None if neither names one."""
+    cls_name = cfg.get("tokenizer_class")
+    if cls_name is None:
+        cls_name = _CLASS_OF_MODEL_TYPE.get(_read_json(os.path.join(path, "config.json")).get("model_type"))
+    if cls_name is not None and cls_name.endswith("Fast"):
+        cls_name = cls_name[: -len("Fast")]
+    return cls_name
+
+
 class JsonTokenizer:
     """A checkpoint directory's ``tokenizer.json`` (with
     ``tokenizer_config.json``, ``special_tokens_map.json`` and, for the
@@ -952,11 +1259,7 @@ class JsonTokenizer:
 
     def __init__(self, path: str, max_length: int = 256):
         cfg = read_config(path)
-        cls_name = cfg.get("tokenizer_class")
-        if cls_name is None:
-            cls_name = _CLASS_OF_MODEL_TYPE.get(_read_json(os.path.join(path, "config.json")).get("model_type"),
-                                                "PreTrainedTokenizer")
-        cls_name = cls_name[: -len("Fast")] if cls_name.endswith("Fast") else cls_name
+        cls_name = tokenizer_class(path, cfg) or "PreTrainedTokenizer"
         if cls_name not in _CLASSES:
             raise _not_ported(f"the tokenizer class {cls_name!r} of {path}")
         self._setup(_read_json(os.path.join(path, "tokenizer.json")), cfg, cls_name, path, max_length)
@@ -968,7 +1271,7 @@ class JsonTokenizer:
         self.model = make_model(spec.get("model"))
         self.vocab_size = self.model.size
         norm_spec = spec.get("normalizer")
-        if cls_name in ("BertTokenizer", "DistilBertTokenizer") and (norm_spec or {}).get("type") == "BertNormalizer":
+        if cls_name in _BERT_CLASSES and (norm_spec or {}).get("type") == "BertNormalizer":
             norm_spec = {**norm_spec, "lowercase": cfg.get("do_lower_case", True),
                          "strip_accents": cfg.get("strip_accents"),
                          "handle_chinese_chars": cfg.get("tokenize_chinese_chars", True)}
@@ -1024,7 +1327,9 @@ class JsonTokenizer:
                 if name == "mask" and not attrs:
                     attrs = dict(_CLASS_MASK.get(cls_name, {}))
                 specials.setdefault(content, {"special": True, **attrs})
-        for t in cfg.get("additional_special_tokens") or []:
+        extra = cfg["additional_special_tokens"] if "additional_special_tokens" in cfg else _CLASS_ADDITIONAL.get(
+            cls_name, ())
+        for t in extra or []:
             content, attrs = _token_fields(t)
             specials.setdefault(content, {"special": True, **attrs})
         vocab = self._model_vocab()

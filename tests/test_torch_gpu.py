@@ -6,6 +6,8 @@ neither jax nor the JAX package, so it also runs on a machine without JAX:
     python3 -m pytest --noconftest -m gpu tests/test_torch_gpu.py
 """
 
+import os
+
 import numpy as np
 import pytest
 import torch
@@ -651,3 +653,54 @@ def test_trainer_mesh_on_the_card_matches_one_device(cuda):
     l_one = [one.train_step(q, qm, d, dm) for _ in range(3)]
     l_mesh = [mesh.train_step(q, qm, d, dm) for _ in range(3)]
     np.testing.assert_allclose(l_mesh, l_one, rtol=1e-3)
+
+
+def test_sentencepiece_checkpoint_builds_on_the_card(cuda, tmp_path, monkeypatch):
+    """A CamemBERT checkpoint whose only tokenizer file is
+    sentencepiece.bpe.model (chip_smoke's writers, at small widths): the
+    port's sentencepiece reader, no <unk>, a diskann build on the card that
+    launches B2 once at k = 64, and B2 on that build's embeddings against
+    its plain version (id overlap >= 0.999, max abs error <= 1e-5, no self
+    match)."""
+    import sys
+    from pathlib import Path
+
+    sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
+    import chip_smoke as cs
+    from leann_torch import LeannBuilder
+    from leann_torch.embeddings.encoder import get_encoder
+    from leann_torch.embeddings.tokenizer import SpmTokenizer
+    from leann_torch.ops import graph
+    from leann_torch.storage import load_token_cache
+
+    path = str(tmp_path / "camembert")
+    os.makedirs(path)
+    cs.camembert_checkpoint(path, dict(vocab_size=4005, dim=64, n_layers=2, n_heads=4, mlp_dim=128, max_len=130))
+    chunks = cs.synth_corpus(3000, np.random.default_rng(5))
+    seen = {}
+    real = graph.exact_knn
+
+    def recording(emb, k, *a, **kw):
+        seen["emb"], seen["k"] = emb, k
+        return real(emb, k, *a, **kw)
+
+    monkeypatch.setattr(graph, "exact_knn", recording)
+    kp.knn_panel.launches = 0
+    b = LeannBuilder(backend_name="diskann", embedding_model=path, max_length=128, graph_degree=32, device="cuda")
+    for c in chunks:
+        b.add_text(c)
+    prefix = str(tmp_path / "x.leann")
+    b.build_index(prefix)
+    assert kp.knn_panel.launches == 1 and seen["k"] == 64
+    tokenizer = get_encoder(path, max_length=128, device="cuda").tokenizer
+    assert isinstance(tokenizer, SpmTokenizer)
+    tok, lengths = load_token_cache(prefix)
+    real_rows = np.arange(tok.shape[1])[None, :] < lengths[:, None]
+    assert not (np.asarray(tok)[real_rows] == tokenizer.unk_id).any()
+    ebf, norms = kp.upload_panel_inputs(seen["emb"], cuda)
+    n = ebf.shape[0]
+    ik, dk = kp.knn_panel(ebf, norms, 64)
+    ip, dp = kp.knn_panel_plain(ebf, norms, 64, 0, n, n)
+    assert _overlap(ik.cpu().numpy(), ip.cpu().numpy()) >= 0.999
+    assert float((dk - dp).abs().max()) <= 1e-5
+    assert not (ik.cpu().numpy() == np.arange(n)[:, None]).any()

@@ -332,30 +332,34 @@ def test_graphemes_equal_the_regex_module(text):
 
 
 def test_gpt2_split_needs_no_unicode_properties():
-    for split in (tj.gpt2_split, tj.gpt2_scan):
+    for split in (tj.gpt2_split, tj.compile_onig(tj.GPT2_PATTERN).findall):
         assert split("Hello world's 123  x\t\ty") == ["Hello", " world", "'s", " 123", " ", " x", "\t", "\t", "y"]
         assert split("a  ") == ["a", "  "]
-    assert tj.gpt2_split("naïve 'S ٣٤") == ["naïve", " '", "S", " ٣٤"]  # not ASCII: the scanner
+    assert tj.gpt2_split("naïve 'S ٣٤") == ["naïve", " '", "S", " ٣٤"]  # not ASCII: the translated pattern
 
 
 @settings(max_examples=300, deadline=None)
 @given(st.lists(st.sampled_from(list("abZ09 '\t\n\x0b\x0c\r\x1c\x1f\x00!.-_sStmdrevl") + ["'s", "'ll", "'re", "  "]),
                 max_size=20).map("".join))
 def test_gpt2_split_over_ascii_equals_the_scanner(text):
-    """ASCII text takes a re pattern with the classes spelled out."""
-    assert tj.gpt2_split(text) == tj.gpt2_scan(text)
+    """ASCII text takes a re pattern with the classes spelled out, which
+    splits as the translated GPT-2 pattern does."""
+    assert tj.gpt2_split(text) == tj.compile_onig(tj.GPT2_PATTERN).findall(text)
 
 
 def test_unknown_components_raise_not_ported(tmp_path):
+    """Components the reader does not run raise, naming themselves: an
+    unknown normalizer, the UnicodeScripts pre-tokenizer, a Split regex
+    with a script property, an unknown post-processor, BPE dropout."""
     base = _spec()
-    for field, spec, name in (("normalizer", {"type": "Prepend", "prepend": "x"}, "Prepend"),
-                              ("pre_tokenizer", {"type": "Split", "pattern": {"String": " "}, "behavior": "Removed",
-                                                 "invert": False}, "Split"),
+    bpe = {"type": "BPE", "vocab": {"<unk>": 0, "a": 1}, "merges": [], "dropout": 0.1}
+    for field, spec, name in (("normalizer", {"type": "Weird"}, "Weird"),
+                              ("pre_tokenizer", {"type": "UnicodeScripts"}, "UnicodeScripts"),
+                              ("pre_tokenizer", {"type": "Split", "pattern": {"Regex": r"\p{Han}+"},
+                                                 "behavior": "Removed", "invert": False}, "Han"),
                               ("post_processor", {"type": "Weird"}, "Weird"),
-                              ("model", {"type": "WordLevel", "vocab": {"<unk>": 0}, "unk_token": "<unk>"},
-                               "WordLevel"),
-                              ("model", {**base["model"], "byte_fallback": True}, "byte_fallback")):
-        d = tmp_path / name
+                              ("model", bpe, "dropout")):
+        d = tmp_path / f"{field}_{name}"
         d.mkdir()
         (d / "tokenizer.json").write_text(json.dumps({**base, field: spec, "added_tokens": [
             {"id": 0, "content": "<unk>", "special": True}]}))
