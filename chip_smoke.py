@@ -16,8 +16,8 @@ final line):
      k in {3, 5, 10, 16, 64, 128, 256, 257, 512}, metrics l2 and cosine (id
      overlap >= 0.95, distances within rtol 1e-2; above k = 256 id overlap
      1.0 and errors <= 1e-5, absolute for cosine, relative for l2). Above
-     k = 64 the kernel keeps its lists in shared memory (64-row blocks),
-     above k = 256 in device memory.
+     k = 64 each row appends its survivors to a buffer and folds it into a
+     sorted list in batches (topk_common.cuh BufRows).
   3. k-NN panel kernel (csrc/knn_panel.cu) against its plain version: every
      row of a 100000 x 384 corpus at k = 64 (the diskann build's launch),
      k = 128 (the HNSW build's: M = 32, efConstruction = 128), k = 257 and
@@ -26,16 +26,23 @@ final line):
      overlap >= 0.98, no self match, no padding row; above k = 256 id
      overlap >= 0.99999 and max abs error <= 1e-5).
      Phases 2-3 check every case and time the kernel and a library call
-     at some (phase 2: cosine at k = 3, 5, 128, 512, l2 at k = 3; phase 3:
-     the full-corpus launches at k = 64 and 128) as device time: the
+     at some (phase 2: cosine at k = 3, 5, 128, 256, 512, l2 at k = 3; phase 3:
+     the full-corpus launches at k = 64, 128 and 512) as device time: the
      summed time of the CUDA kernels one call launches, from torch.profiler
-     over 10 calls after 2 untimed ones (`kernel_ms`, `library_ms`); each
+     over 10 calls (3 above k = 256) after 2 untimed ones (`kernel_ms`,
+     `library_ms`; `kernel_parts_ms` by kernel, the tile kernel against the
+     merge); each
      kernel's records must number a multiple of the calls, else the profile
      is taken again, and after five the time is the call's wall time between
      CUDA events, named so in `ms_source` / `library_ms_source`. `call_ms`
      is the wall time of the wrapper between CUDA events, host work
      included. Two launches at the main
-     path's shape must give bit-identical ids and distances.
+     path's shape must give bit-identical ids and distances. Untimed, at
+     k = 128 and 512, both kernels on a corpus in which every column beats
+     every column before it for the rows taken (integer-valued rows, exact
+     distances: the buffers fill and fold at every tile), ids and distances
+     identical to the plain versions'; and on a corpus of duplicated rows,
+     whose ties straddle the folds, every upper twin after its lower one.
   4. main path: 100,000 synthetic chunks -> LeannBuilder(diskann,
      hash-minilm, max_length=128, graph_degree=32).build_index, a flat index
      over the same chunks as the exact oracle, then 64 queries through
@@ -392,10 +399,13 @@ def device_ms_many(torch, fns, attempts: int = 5):
     function's range, 5 ms either side, are summed for it. (One window for a
     kernel and its library call halves the pads, the smoke's largest cost.) Every
     call launches the same kernels, so each kernel's count of records there
-    must be a multiple of ``reps``. The profiler can lose the records of the
-    first kernels of a profile, more often late in a long process (every
-    loss seen was at the start of the window, and some profiles came back
-    empty): the untimed calls take such a loss. A profile that lost records
+    must be a multiple of ``reps``, and the range must hold a kernel record
+    for each kernel launch the host recorded in it (a library call of many
+    launches can lose some and keep the multiples). The profiler can lose
+    the records of the first kernels of a profile, more often late in a
+    long process (every loss seen was at the start of the window, and some
+    profiles came back empty): the untimed calls take such a loss. A
+    profile that lost records
     is printed, with the offsets of its kernels from the host events around
     them, and the window is taken again after twice the idle time before its
     calls (at most ``PROFILE_PAD_MAX_S``) for the functions still without
@@ -436,23 +446,25 @@ def device_ms_many(torch, fns, attempts: int = 5):
             # us: half the gaps around the range (device and host clocks differ by up to ~1 ms)
             lo, hi = (marks[0].start - 5e3, marks[0].end + 5e3) if marks else (float("inf"), float("inf"))
             timed = [e for e in cuda if lo <= e.time_range.start <= hi]
-            by_kernel, counts = {}, {}
+            launches = [e.time_range for e in evts if "LaunchKernel" in e.name and lo <= e.time_range.start <= hi]
+            by_kernel, counts, n_kernels = {}, {}, 0
             for e in timed:
                 if _device_us(e) > 0:
                     by_kernel[e.name] = by_kernel.get(e.name, 0.0) + _device_us(e) / 1e3 / reps
                     counts[e.name[:60]] = counts.get(e.name[:60], 0) + 1
-            if by_kernel and all(c % reps == 0 for c in counts.values()):
+                    n_kernels += not e.name.startswith(("Memset", "Memcpy"))
+            if by_kernel and all(c % reps == 0 for c in counts.values()) and n_kernels >= len(launches):
                 parts = {}  # names shortened for printing only; kernels that share a prefix add up
                 for key, ms in by_kernel.items():
                     parts[key[:60]] = parts.get(key[:60], 0.0) + ms
                 out[i] = (sum(by_kernel.values()), parts,
                           {"attempts": attempt, "pad_s": pad, "source": "torch.profiler", "window_fns": len(todo)})
                 continue
-            launches = [e.time_range for e in evts if "LaunchKernel" in e.name and lo <= e.time_range.start <= hi]
             syncs = [e.time_range for e in evts if "Synchronize" in e.name]
             kernels = [e.time_range for e in timed]
             emit({"phase": "profiler_lost_records", "attempt": attempt, "pad_s": pad, "fn": i, "reps": reps,
                   "records": counts, "marked": bool(marks), "launch_records": len(launches),
+                  "kernel_records": n_kernels,
                   "first_kernel_after_first_launch_ms": (min(k.start for k in kernels) - launches[0].start) / 1e3
                   if kernels and launches else None,
                   "last_kernel_end_after_sync_end_ms": (max(k.end for k in kernels) - syncs[-1].end) / 1e3
@@ -504,8 +516,77 @@ def overlap(a, b) -> float:
 
 # the kernel sizes phases 2 and 3 time (each size is checked); the others were
 # cut to make room for phases 12 and 13 (PERF.md §4)
-TIMED_FLAT_K = (3, 5, 128, 512)
-TIMED_PANEL_K = (64, 128)
+TIMED_FLAT_K = (3, 5, 128, 256, 512)
+TIMED_PANEL_K = (64, 128, 512)
+# the list lengths the order checks of phases 2 and 3 drive (k > 64: BufRows)
+ORDER_CHECK_K = (128, 512)
+
+
+def ladder_rows(torch, dev, n: int, d: int = 384):
+    """f32 [n, d] rows whose entries (integers 0..255, exact in bf16) sum
+    to the row's index, each entry nondecreasing along the rows: for a
+    query of positive weights every row scores above the rows before it,
+    and the l2 distance from a later row falls row by row up to it. Every
+    product and (below ~2^24) every distance is an exact integer in f32."""
+    i = torch.arange(n, device=dev, dtype=torch.float32)[:, None]
+    j = torch.arange(d, device=dev, dtype=torch.float32)[None, :]
+    return (i - 255.0 * j).clamp(0.0, 255.0)
+
+
+def lower_twin_first(torch, ids, dists, half: int, own=None) -> bool:
+    """Rows i and i + half of the corpus are equal: each row's list is sorted
+    by (distance, id), and wherever an upper twin is returned its lower twin
+    is too (so before it, at the same distance), unless the lower one is the
+    query's own row ``own``."""
+    ids = ids.long()
+    ordered = (dists[:, 1:] > dists[:, :-1]) | ((dists[:, 1:] == dists[:, :-1]) & (ids[:, 1:] > ids[:, :-1]))
+    twin = ids - half
+    need = ids >= half
+    if own is not None:
+        need &= twin != own[:, None]
+    srt = torch.sort(ids, dim=1).values
+    found = srt.gather(1, torch.searchsorted(srt, twin.clamp_min(0)).clamp_max(ids.shape[1] - 1)) == twin
+    return bool(ordered.all()) and bool((found | ~need).all())
+
+
+def order_checks(torch, dev, rng, kernel: str) -> None:
+    """Phases 2-3, untimed: the kernel at ORDER_CHECK_K where every column
+    beats the bar (ladder_rows) against its plain version (identical ids and
+    distances), and over duplicated rows (lower_twin_first)."""
+    from leann_torch.ops.distance import flat_search
+    from leann_torch.ops.flat_topk import flat_topk
+    from leann_torch.ops.knn_panel import knn_panel, knn_panel_plain, panel_inputs
+
+    for k in ORDER_CHECK_K:
+        if kernel == "flat_topk":
+            e = ladder_rows(torch, dev, 65_536).to(torch.bfloat16).contiguous()
+            q = torch.ones((64, 384), device=dev)
+            q[:, 0] = torch.arange(64, device=dev, dtype=torch.float32) % 4 + 1
+            got, want = flat_topk(q, e, None, e.shape[0], k, "mips"), flat_search(e, q, e.shape[0], k, "mips")
+            half = 10_000
+            x = torch.from_numpy(rng.standard_normal((half, 384)).astype(np.float32)).to(dev)
+            x = torch.cat([x, x]) / x.norm(dim=1).repeat(2)[:, None]
+            qd = torch.from_numpy(rng.standard_normal((64, 384)).astype(np.float32)).to(dev)
+            ti, td = flat_topk(qd / qd.norm(dim=1, keepdim=True), x.to(torch.bfloat16).contiguous(), None, 2 * half, k,
+                               "cosine")
+            twins = lower_twin_first(torch, ti, td, half)
+        else:
+            ebf, norms = panel_inputs(ladder_rows(torch, dev, 16_384))
+            args = (ebf, norms, k, 16_384 - 1000, 1000, 16_384)
+            got, want = knn_panel(*args), knn_panel_plain(*args)
+            half = 10_000
+            x = torch.from_numpy(rng.standard_normal((half, 384)).astype(np.float32)).to(dev)
+            xb, xn = panel_inputs(torch.cat([x, x]))
+            ti, td = knn_panel(xb, xn, k)
+            twins = lower_twin_first(torch, ti, td, half, own=torch.arange(2 * half, device=dev))
+            twins = twins and bool((ti[:half, 0].long() == torch.arange(half, device=dev) + half).all())
+        torch.cuda.synchronize()
+        same = bool(torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]))
+        row = {"phase": kernel, "case": "order", "k": k, "every_column_beats_the_bar_identical": same,
+               "duplicates_lower_twin_first": twins, "ok": same and twins}
+        emit(row)
+        if not row["ok"]:
+            fail(f"{kernel} at k = {k} breaks the list order: {row}")
 
 
 def phase_flat_topk(torch, dev, rng):
@@ -522,7 +603,7 @@ def phase_flat_topk(torch, dev, rng):
         qm, em = (q, e32) if metric == "l2" else (qc, e32c)
         e = em.to(torch.bfloat16).contiguous()
         en = em.square().sum(1).contiguous()
-        # 3: the oracle's; 5: search's default top_k; above 256 the lists in device memory
+        # 3: the oracle's; 5: search's default top_k; above 64 buffered lists
         for k in (3, 5, 10, 16, 64, 128, 256, 257, 512):
             ik, dk = flat_topk(qm, e, en, n, k, metric)
             ip, dp = flat_search(e, qm, n, k, metric, en=en)
@@ -531,15 +612,15 @@ def phase_flat_topk(torch, dev, rng):
             rel = float(((dk - dp).abs() / dp.abs().clamp_min(1e-6)).max())
             err = float((dk - dp).abs().max())
             ok = ov >= 0.95 and torch.allclose(dk, dp, rtol=1e-2, atol=1e-2) and int(ik.max()) < n
-            if k > 256:  # the device-memory instance is held tighter
+            if k > 256:  # the longest lists are held tighter
                 ok = ok and ov == 1.0 and (err if metric == "cosine" else rel) <= 1e-5
             ik2, dk2 = flat_topk(qm, e, en, n, k, metric)
             same = bool(torch.equal(ik, ik2) and torch.equal(dk, dk2))  # deterministic
             row = {"phase": "flat_topk", "metric": metric, "k": k, "shape": [b, n, d], "overlap": ov,
                    "max_rel_err": rel, "max_abs_err": err, "deterministic": same, "ok": bool(ok and same)}
             # every (metric, k) is checked; timed are the oracle's k (3), search's
-            # default top_k (5), the shared-memory lists (128) and the device-memory
-            # ones (512), l2 at k = 3 only (the profiles are the run's largest cost)
+            # default top_k (5), the buffered lists at k2 = 128, 256 and 512,
+            # l2 at k = 3 only (the profiles are the run's largest cost)
             if k == 3 or (metric == "cosine" and k in TIMED_FLAT_K):
                 qb = qm.to(torch.bfloat16)
 
@@ -564,6 +645,7 @@ def phase_flat_topk(torch, dev, rng):
                 fail(f"flat_topk gave different results in two launches: {row}")
             if metric == "cosine" and k in (3, 512):  # the oracle's calls: top-3 on the main path, top-512
                 main[k] = row
+    order_checks(torch, dev, rng, "flat_topk")
     return main
 
 
@@ -590,7 +672,7 @@ def phase_knn_panel(torch, dev, rng):
         self_hits = int((ik == (torch.arange(q_count, device=dev) + q_start)[:, None]).sum())
         pad_hits = int((ik >= n_real).sum())
         ok = ov >= 0.98 and self_hits == 0 and pad_hits == 0 and int((ik < 0).sum()) == 0
-        if k > 256:  # the device-memory instance is held tighter
+        if k > 256:  # the longest lists are held tighter
             ok = ok and ov >= 0.99999 and err <= 1e-5
         ik2, dk2 = knn_panel(ebf, norms, k, q_start, q_count, n_real)
         same = bool(torch.equal(ik, ik2) and torch.equal(dk, dk2))  # deterministic
@@ -627,6 +709,7 @@ def phase_knn_panel(torch, dev, rng):
             main[k] = row
         del emb, ebf, norms, ik, dk, ip, dp
         torch.cuda.empty_cache()
+    order_checks(torch, dev, rng, "knn_panel")
     return main
 
 

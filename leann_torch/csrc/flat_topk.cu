@@ -26,12 +26,14 @@
 // |q|^2 from the f32 query); mips/cosine -> -q.e. Rows >= valid_n are
 // never candidates; -1 / 3.4e38 fill rows with fewer than k valid rows.
 // k <= 16 (the oracle's k = 3, search's default 5) takes the quad-owned
-// lists, the cheapest inserts; any k is taken (top_k > 256 keeps its lists
-// in device memory).
+// lists, the cheapest inserts; any k is taken. Above k = 64 each split's
+// rows buffer their survivors and fold them into sorted lists in batches
+// (topk_common.cuh BufRows), and topk_merge_lists folds the splits' lists
+// with W warps per query; there the list work, not the corpus read, bounds
+// the call, so the planner makes no split narrower than k columns.
 //
-// Shared memory per block: 133,184 B at every D and at k > 256 (lists in
-// device memory, in the partial-list output), 206,896 B for 64 < k <= 256
-// (topk_common.cuh).
+// Shared memory per block: 133,184 B at every D up to k = 64, 198,720 to
+// 231,456 B above by the instance (topk_common.cuh).
 #include "topk_common.cuh"
 
 using namespace leann;
@@ -55,13 +57,15 @@ __global__ void __launch_bounds__(128) flat_query_prep(const float* __restrict__
 
 // q f32[B, D], e bf16[N, D] (D a multiple of 16, 16-byte-aligned base),
 // en f32[N] (l2 only, else may be null); scratch qb bf16[B, D], qn f32[B],
-// and (col_splits > 1) partial lists pv/pi [B, col_splits, k]; outputs
-// ov/oi [B, k]. The plan (row_blocks, col_splits) comes from
-// ops/tile_plan.py plan_launch. Returns cudaGetLastError() after the
-// launches.
+// (col_splits > 1) partial lists pv/pi [B, col_splits, k], (k > 64) the
+// buffered lists lv/li [B, col_splits, k2] and (k2 > 2048, split) the
+// merge's mv/mi [B, 8, k2]; outputs ov/oi [B, k]. The plan (row_blocks,
+// col_splits) comes from ops/tile_plan.py plan_launch. Returns
+// cudaGetLastError() after the launches.
 extern "C" int flat_topk_launch(const float* q, const void* e, const float* en, void* qb, float* qn, float* pv,
-                                int* pi, float* ov, int* oi, int B, int N, int D, int valid_n, int k, int l2,
-                                int row_blocks, int col_splits, cudaStream_t stream) {
+                                int* pi, float* ov, int* oi, float* lv, int* li, float* mv, int* mi, int B, int N,
+                                int D, int valid_n, int k, int l2, int row_blocks, int col_splits,
+                                cudaStream_t stream) {
   if (B < 1 || N < 1 || (l2 && !en) || !bf16_rows_ok(e, D)) return (int)cudaErrorInvalidValue;
   TopkArgs a{};
   a.cn = en;
@@ -73,5 +77,5 @@ extern "C" int flat_topk_launch(const float* q, const void* e, const float* en, 
   a.n_cols = valid_n < N ? (valid_n > 0 ? valid_n : 0) : N;
   a.k = k;
   flat_query_prep<<<B, 128, 0, stream>>>(q, static_cast<__nv_bfloat16*>(qb), qn, D);
-  return topk_launch(qb, e, N, D, a, row_blocks, col_splits, pv, pi, ov, oi, stream);
+  return topk_launch(qb, e, N, D, a, row_blocks, col_splits, pv, pi, ov, oi, lv, li, mv, mi, stream);
 }

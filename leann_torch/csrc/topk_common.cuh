@@ -2,7 +2,7 @@
 // knn_panel.cu): TMA loads into a ring of shared-memory stages behind
 // mbarriers, wgmma products (bf16 in, f32 sums in registers), and a
 // threshold-filtered top-k epilogue that works from the accumulator
-// registers into sorted per-row lists held in registers.
+// registers into sorted per-row lists.
 //
 // Block: 384 threads, 128 query rows, a range of corpus columns.
 //   warpgroup 2 (producer, 40 registers after setmaxnreg): one thread
@@ -10,7 +10,9 @@
 //     block's 128 query rows and the same box of a 128-row corpus tile; the
 //     ring has S stages, each behind a full and an empty mbarrier waited on
 //     with phase parity.
-//   warpgroups 0, 1 (consumers, 232 registers): warpgroup w owns query rows
+//   warpgroups 0, 1 (consumers, 232 registers after setmaxnreg; ptxas
+//     holds their code to the 168 that 384 threads allow, and a spill fails
+//     the build's check): warpgroup w owns query rows
 //     64 w .. 64 w + 63 (one wgmma M) and issues wgmma m64n128k16 on every
 //     stage, keeping one box in flight and releasing the one before. After
 //     a tile's last box its accumulators hold the tile's 64 x 128 dot
@@ -18,15 +20,14 @@
 //     survivors to that row's list. Both warpgroups read every stage and
 //     arrive on its empty barrier, so no waiter is ever more than one phase
 //     ahead of a barrier, which the parity waits need.
-// Grid: (column splits, 128-row blocks). With more than one split each
-// block writes a partial list per row and topk_merge folds them.
+// Grid: (column splits, row blocks). With more than one split each block
+// writes a partial list per row and a merge kernel folds them.
 //
 // Why 128 rows in two warpgroups and not 64 rows with the warpgroups taking
-// alternate tiles (ping-pong): the epilogue's list inserts, not the
-// products, bound the kernel, and ping-pong keeps two lists per row, each
-// over half the columns, which costs about 1.8x the inserts of one list.
-// With one list per row the products no longer overlap the epilogue of the
-// same block; the other blocks on the card do not wait for it.
+// alternate tiles (ping-pong): ping-pong keeps two lists per row, each over
+// half the columns, which costs about 1.8x the list work of one list. With
+// one list per row the products no longer overlap the epilogue of the same
+// block; the other blocks on the card do not wait for it.
 //
 // Operands: bf16 row-major [rows, D], D a multiple of 16. A TMA box is 64
 // features (128 B) x 128 rows with 128-byte swizzle; TMA's out-of-bounds
@@ -36,38 +37,70 @@
 // start 8 KB into the query box).
 //
 // Order: entries sort ascending by (distance, id), so ties go to the lower
-// id (lax.top_k's order). Inserts go one candidate per list at a time in a
-// fixed order, and the sorted top-k of a set under a total order does not
-// depend on insertion order, so results are deterministic; nothing is
-// accumulated with atomics.
+// id (lax.top_k's order). The sorted top-k of a set under a total order
+// does not depend on the order the set arrives in, so results are
+// deterministic; nothing is accumulated with atomics.
 //
-// Shared memory per block (kSmemBytes, fixed at compile time):
-//   1 KB alignment slack + S x 32 KB stages + 2 x 128 f32 column norms +
-//   2 S x 8 B mbarriers = 133,184 B at S = 4, whatever D and k: nothing is
-//   resident but the ring (D = 384, 400 and 784 alike). One block per SM
-//   (the registers allow no second).
+// The lists. Up to k = 64 (kRegMaxK) a row's sorted list lives in
+// registers (QuadRows, WarpRows) and takes one survivor at a time. Above
+// k = 64 (the HNSW build's C = 4 R = 128, a flat top_k > 64, C = 512 at
+// M = 64, efConstruction = 512) every row keeps a sorted list of k2 entries,
+// k2 the power of two >= k (at least 128), whose entry k - 1 is the bar,
+// in device memory, and beside it a buffer of up to CAP candidates in
+// shared memory (BufRows; the buffered select of GPU k-selection, FAISS's
+// WarpSelect):
+//   append: in the epilogue each row's quad appends the tile's survivors of
+//     the bar in parallel, each lane at the slot a ballot prefix gives it
+//     past the row's count (held in registers by the quad);
+//   flush: when a row's buffer could overflow, and once after the last
+//     tile, the warp sorts the buffer in registers (bitonic), takes for list
+//     position k2 - 1 - e the smaller of itself and buffer entry e (the list
+//     and the reversed buffer form a bitonic sequence holding the k2
+//     smallest of both), sorts that with a bitonic merge and reads the new
+//     bar at k - 1 (fold_buffer). Up to k2 = 256 the list is merged in
+//     registers between one load and one store; above, strides >= 32 go
+//     through memory (generic pointers: the merges' lists lie in shared
+//     memory, the tile kernel's in device memory).
+// A flush costs O(k2 log k2 + CAP log^2 CAP) for up to CAP candidates, and
+// its memory round trips bound it (the card showed a warp folding one row
+// at a time faster than lane groups folding several); on a tile whose
+// candidates all lose to the bar the epilogue costs what k <= 64 costs.
+// The merges (topk_merge_lists) fold the column splits' partial lists with
+// the same append and flush, W warps per row, then the warps' lists into
+// each other's.
 //
-// Above k = 64 (up to kMaxK = 256; the HNSW build asks for C = 4 R = 128)
-// the lists no longer fit in registers: 16 rows x 4-8 slots x (value, id)
-// per thread beside the 64 accumulators would spill. That instance
-// (SmemRows) keeps each row's sorted list in shared memory and takes 64
-// query rows per block, one consumer warpgroup and a producer warpgroup
-// (256 threads), with a 3-stage ring of 8 KB query + 16 KB corpus boxes:
-//   1 KB + 3 x 24 KB + 64 rows x 256 x 8 B lists (128 KB) + 1 KB norms +
-//   48 B barriers = kWideSmemBytes = 206,896 B. With 128 rows the lists
-//   alone would take 256 KB at k = 256.
+// What bounds each instance on the H100: the k-NN build (B2) at D = 384
+// does 2 N^2 D operations and reads each corpus box once per 128 query rows
+// from L2, so the products (operations) bound it at every k; the lists
+// bound it only where a row's survivors are many (data in which each
+// row's neighbours come in runs of columns). The flat search (B1) at
+// B <= 128 queries reads the corpus once (bytes); above k = 64 its column
+// splits each fill a list from empty, so there the flushes (about 400
+// survivors per split and query at k = 128, 64 x 100K) and the merge's k
+// entries per split bound it, and the planner makes no split narrower than
+// k columns (ops/tile_plan.py).
 //
-// Above kMaxK (the HNSW build at M = 64, efConstruction = 512 asks for
-// C = 512; a flat search may ask for any top_k) shared memory cannot hold
-// the lists either: 64 rows x 512 x 8 B = 256 KB. That fifth instance
-// (GmemRows) keeps each (block, row) list of k entries in device memory,
-// in the block's own slice of the [rows, splits, k] output the wrapper
-// allocates (the partial lists, or the final ones with one split), read
-// and written through L2 by the same lane-owned insert as SmemRows
-// (glist_insert). It takes the register instances' block: 128 rows, two
-// consumer warpgroups, the 4-stage ring, kSmemBytes. Its merge
-// (topk_merge_gmem) folds the partial lists into the [rows, k] output the
-// same way. There is no limit on k but memory.
+// Shared memory per block (dynamic, held to the card's 227 KB by the
+// static_asserts below):
+//   registers (k <= 64): 1 KB alignment slack + 4 x 32 KB stages + 2 x 128
+//     f32 column norms + 8 mbarriers = kSmemBytes = 133,184 B, whatever D.
+//   BufRows (k > 64, any k): the 4-stage ring (128 KB) + 128 rows x
+//     64-entry buffers x 8 B (64 KB) = 198,720 B. The lists are the
+//     block's slice of a [rows, splits, k2] scratch the wrapper allocates,
+//     read and written only by folds: in registers between one load and one
+//     store up to k2 = 256, stage by stage above. The 132 resident blocks'
+//     slices take 132 x 128 rows x k2 x 8 B: 17.3 MB at k2 = 128, within
+//     the card's 50 MB of L2.
+// The instance was chosen on the card (PERF.md §6): 128-entry buffers
+// (3 stages) were 7-25% faster than 64 (4 stages) but spill; lists of
+// k2 = 128 in shared memory (a 2-stage ring, 32-entry buffers) were 0-8%
+// faster on the k = 128 builds, too little for a second instance, and a
+// 64-row block with one consumer warpgroup was slower.
+// Consumers compile to at most 168 registers (384 threads), and a fold
+// inside the epilogue has the 64 accumulators live: BufRows keeps few
+// fields (the buffer's ids at a fixed offset, the list length from its
+// stride) so that it does not spill.
+// One block per SM (the registers allow no second).
 //
 // The tensor maps are encoded on the host per launch with the driver API's
 // cuTensorMapEncodeTiled, reached through cudaGetDriverEntryPoint (the
@@ -89,26 +122,33 @@ constexpr int kBN = 128;                         // corpus rows per tile
 constexpr int kBoxK = 64;                        // features per TMA box
 constexpr int kBoxBytes = 128 * kBoxK * 2;       // one box of 128 rows: 16 KB
 constexpr int kStageBytes = 2 * kBoxBytes;       // a stage: query box + corpus box
-constexpr int kRegMaxK = 64;                     // WarpRows: two list slots per lane
-constexpr int kMaxK = 256;                       // SmemRows: lists in shared memory; GmemRows above
-constexpr int kGroup = 4;                        // GmemRows: 32-entry chunks an insert reads at once
+constexpr int kRegMaxK = 64;                     // WarpRows: two list slots per lane; BufRows above
+constexpr int kMinListLen = 128;                 // BufRows' shortest list (k2 >= the buffers' CAP)
 constexpr int kStages = 4;                       // ring slots (one box in flight needs two)
 constexpr int kMergeThreads = 256;
+constexpr int kMergeWarps = kMergeThreads / 32;
+constexpr int kMergeCap = 128;                   // topk_merge_lists: buffer entries per warp
+constexpr int kMergeSmemMaxK2 = 2048;            // ... lists in shared memory up to this k2
+constexpr int kRegFoldMaxK2 = 256;               // fold_buffer: lists up to this k2 folded in registers
+constexpr int kMaxSmem = 227 * 1024;             // dynamic shared memory a block may take on sm_90
+
+// k2: the length of a BufRows list for k > kRegMaxK, the power of two >= k.
+__host__ __device__ __forceinline__ int list_len(int k) {
+  int k2 = kMinListLen;
+  while (k2 < k) k2 <<= 1;
+  return k2;
+}
+
+// Warps per row of topk_merge_lists: each folds at least two of the lists.
+__host__ __device__ __forceinline__ int merge_warps(int lists) {
+  return lists >= 16 ? 8 : lists >= 8 ? 4 : lists >= 4 ? 2 : 1;
+}
 
 __host__ __device__ __forceinline__ int feature_boxes(int d) { return (d + kBoxK - 1) / kBoxK; }
 
-// Bytes of dynamic shared memory the kernel takes (layout above).
+// Bytes of dynamic shared memory the register instances take (layout above).
 constexpr size_t kSmemBytes = 1024 + (size_t)kStages * kStageBytes + 2 * kBN * 4 + 2 * kStages * 8;
-static_assert(kSmemBytes <= 227 * 1024, "a block takes at most 227 KB of shared memory on sm_90");
-
-// The shared-memory-list instance (64 < k <= kMaxK): 64-row blocks.
-constexpr int kWideBM = 64;
-constexpr int kWideStages = 3;
-constexpr int kWideStageBytes = kWideBM * kBoxK * 2 + kBoxBytes;     // 8 KB query + 16 KB corpus box
-constexpr size_t kListBytes = (size_t)kWideBM * kMaxK * (4 + 4);     // f32 values + i32 ids
-constexpr size_t kWideSmemBytes =
-    1024 + (size_t)kWideStages * kWideStageBytes + kListBytes + 2 * kBN * 4 + 2 * kWideStages * 8;
-static_assert(kWideSmemBytes <= 227 * 1024, "a block takes at most 227 KB of shared memory on sm_90");
+static_assert(kSmemBytes <= kMaxSmem, "a block takes at most 227 KB of shared memory on sm_90");
 
 // ---------------------------------------------------------------------------
 // PTX wrappers
@@ -228,6 +268,9 @@ struct TopkArgs {
                     // [s T / S, (s + 1) T / S) of the T = ceil(n_cols / 128)
   int kb;           // feature boxes, ceil(D / 64)
   int k;
+  int k2;           // BufRows: list length, the power of two >= k (list_len)
+  float* lv;        // BufRows: [rows, splits, k2] lists
+  int* li;
 };
 
 // ---------------------------------------------------------------------------
@@ -240,9 +283,8 @@ struct TopkArgs {
 //     their own rows at once;
 //   WarpRows (k <= 64): a row's list spans the warp (lane l holds positions
 //     l and l + 32), one insert at a time, with cheap shuffles per insert;
-//   SmemRows (k <= 256): as WarpRows, but the lists lie in shared memory
-//     (lane l owns positions l + 32 s), read and written back per insert;
-//   GmemRows (any k): as SmemRows, with the lists in device memory.
+//   BufRows (k > 64, below): a buffer of survivors per row beside a sorted
+//     list in shared or device memory, folded in by warp-wide flushes.
 
 template <int SL>
 struct QuadRows {
@@ -463,247 +505,325 @@ struct WarpRows {
 
 #undef LEANN_ROW_CASE
 
-// Insert (cv, ci), which beats position k - 1, into the sorted list (v, id)
-// of k <= kMaxK entries in shared memory; all lanes of the warp call with it.
-// Lane l reads and writes only its own positions l + 32 s, so no lane waits
-// on another's stores. (tv, ti) is position k - 1 afterwards.
-__device__ __forceinline__ void slist_insert(float* v, int* id, int k, float cv, int ci, float& tv, int& ti) {
-  constexpr int SL = kMaxK / 32;
+// ---------------------------------------------------------------------------
+// Lists above k = 64: a sorted list of k2 entries per row (entry k - 1 the
+// bar) and a buffer of candidates that beat the bar (header note).
+
+// Ascending bitonic sort of the 32 S entries a warp holds, entry
+// e = 32 s + lane in slot s of lane `lane`: strides >= 32 pair two slots of
+// one lane, strides < 32 two lanes' same slot.
+template <int S>
+__device__ __forceinline__ void warp_sort(float (&x)[S], int (&y)[S]) {
   const int lane = threadIdx.x & 31;
-  float x[SL];
-  int y[SL];
-  int p = 0;  // the candidate's position: entries before it (a sorted prefix)
 #pragma unroll
-  for (int s = 0; s < SL; ++s) {
-    const int q = lane + 32 * s;
-    const bool in = q < k;
-    x[s] = in ? v[q] : kInf;
-    y[s] = in ? id[q] : kEmptyId;
-    p += __popc(__ballot_sync(0xffffffffu, in && lex_less(x[s], y[s], cv, ci)));
-  }
-  float cw = kInf;  // lane 31's entry of slot s - 1 before the insert
-  int cwi = kEmptyId;
+  for (int size = 2; size <= 32 * S; size <<= 1) {
 #pragma unroll
-  for (int s = 0; s < SL; ++s) {
-    float u = __shfl_up_sync(0xffffffffu, x[s], 1);  // position q takes q - 1
-    int j = __shfl_up_sync(0xffffffffu, y[s], 1);
-    const float nw = __shfl_sync(0xffffffffu, x[s], 31);
-    const int nwi = __shfl_sync(0xffffffffu, y[s], 31);
-    if (lane == 0) { u = cw; j = cwi; }
-    cw = nw;
-    cwi = nwi;
-    const int q = lane + 32 * s;
-    if (q < k && q >= p) {
-      if (q == p) { u = cv; j = ci; }
-      v[q] = u;
-      id[q] = j;
-      x[s] = u;
-      y[s] = j;
+    for (int st = size >> 1; st > 0; st >>= 1) {
+#pragma unroll
+      for (int s = 0; s < S; ++s) {
+        const bool up = ((32 * s + lane) & size) == 0;  // the direction of this entry's block
+        if (st >= 32) {
+          const int t = s ^ (st >> 5);  // entry 32 t + lane, above this one where t > s
+          if (t > s && (up ? lex_less(x[t], y[t], x[s], y[s]) : lex_less(x[s], y[s], x[t], y[t]))) {
+            const float xv = x[s];
+            const int yv = y[s];
+            x[s] = x[t]; y[s] = y[t];
+            x[t] = xv; y[t] = yv;
+          }
+        } else {
+          const float ox = __shfl_xor_sync(0xffffffffu, x[s], st);
+          const int oy = __shfl_xor_sync(0xffffffffu, y[s], st);
+          const bool keep_min = ((lane & st) == 0) == up;
+          if (keep_min ? lex_less(ox, oy, x[s], y[s]) : lex_less(x[s], y[s], ox, oy)) { x[s] = ox; y[s] = oy; }
+        }
+      }
     }
   }
-  float lv = kInf;
-  int li = kEmptyId;
-#pragma unroll
-  for (int s = 0; s < SL; ++s)
-    if (s == (k - 1) >> 5) { lv = x[s]; li = y[s]; }
-  tv = __shfl_sync(0xffffffffu, lv, (k - 1) & 31);
-  ti = __shfl_sync(0xffffffffu, li, (k - 1) & 31);
 }
 
-struct SmemRows {
-  float* v;  // [16][kMaxK]: row 16 w + r at v + r kMaxK (bank = lane at every slot)
-  int* id;
-  float tv[2];  // position k - 1 of this thread's rows r0, r1
+// Sorts ascending the bitonic sequence (ascending, then descending) of the
+// 32 L entries a warp holds as warp_sort does: strides >= 32 between two
+// slots of a lane, then 16 .. 1 by shuffles.
+template <int L>
+__device__ __forceinline__ void warp_bitonic_merge(float (&a)[L], int (&b)[L]) {
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int h = L >> 1; h > 0; h >>= 1)
+#pragma unroll
+    for (int t = 0; t < L; ++t) {
+      const int u = t ^ h;
+      if (u > t && lex_less(a[u], b[u], a[t], b[t])) {
+        const float av = a[t];
+        const int bv = b[t];
+        a[t] = a[u]; b[t] = b[u];
+        a[u] = av; b[u] = bv;
+      }
+    }
+#pragma unroll
+  for (int st = 16; st > 0; st >>= 1)
+#pragma unroll
+    for (int t = 0; t < L; ++t) {
+      const float ox = __shfl_xor_sync(0xffffffffu, a[t], st);
+      const int oy = __shfl_xor_sync(0xffffffffu, b[t], st);
+      if ((lane & st) == 0 ? lex_less(ox, oy, a[t], b[t]) : lex_less(a[t], b[t], ox, oy)) { a[t] = ox; b[t] = oy; }
+    }
+}
+
+// The list of 32 L entries in registers for the fold: one load, then the
+// sorted buffer (32 S entries at bv / bi, entry e at e ^ swz, kInf past its
+// count) folded in, one store. List position k2 - 1 - e (slot L - 1 - s of
+// lane 31 - lane) takes buffer entry e = 32 s + lane where that is the
+// smaller. (tv, ti) is entry k - 1 afterwards.
+template <int S, int L>
+__device__ __forceinline__ void fold_in_registers(const float* bv, const int* bi, int swz, float* lv, int* li, int k,
+                                                  float& tv, int& ti) {
+  static_assert(S <= L, "the buffer is no longer than the list");
+  const int lane = threadIdx.x & 31;
+  float a[L];
+  int b[L];
+#pragma unroll
+  for (int t = 0; t < L; ++t) { a[t] = lv[32 * t + lane]; b[t] = li[32 * t + lane]; }
+#pragma unroll
+  for (int s = 0; s < S; ++s) {
+    const int e = (32 * s + 31 - lane) ^ swz;
+    const float xr = bv[e];
+    const int yr = bi[e];
+    if (lex_less(xr, yr, a[L - 1 - s], b[L - 1 - s])) { a[L - 1 - s] = xr; b[L - 1 - s] = yr; }
+  }
+  warp_bitonic_merge<L>(a, b);
+  float bv_k = kInf;
+  int bi_k = kEmptyId;
+#pragma unroll
+  for (int t = 0; t < L; ++t) {
+    lv[32 * t + lane] = a[t];
+    li[32 * t + lane] = b[t];
+    if (t == (k - 1) >> 5) { bv_k = a[t]; bi_k = b[t]; }
+  }
+  tv = __shfl_sync(0xffffffffu, bv_k, (k - 1) & 31);
+  ti = __shfl_sync(0xffffffffu, bi_k, (k - 1) & 31);
+}
+
+// Sorts the bitonic sequence of k2 entries at (v, id) in memory, k2 a power
+// of two >= 32, ascending: the compare-exchange stages of strides k2 / 2 ..
+// 32 lane-parallel through memory (a __syncwarp between), then strides
+// 16 .. 1 on each 32-entry run in registers.
+__device__ __forceinline__ void bitonic_merge(float* v, int* id, int k2) {
+  const int lane = threadIdx.x & 31;
+  for (int st = k2 >> 1; st >= 32; st >>= 1) {
+#pragma unroll 4
+    for (int p = lane; p < (k2 >> 1); p += 32) {
+      const int i = ((p & ~(st - 1)) << 1) | (p & (st - 1)), j = i + st;
+      const float a = v[i], b = v[j];
+      const int ia = id[i], ib = id[j];
+      if (lex_less(b, ib, a, ia)) { v[i] = b; id[i] = ib; v[j] = a; id[j] = ia; }
+    }
+    __syncwarp();
+  }
+#pragma unroll 2
+  for (int r = 0; r < k2; r += 32) {
+    float x[1] = {v[r + lane]};
+    int y[1] = {id[r + lane]};
+    warp_bitonic_merge<1>(x, y);
+    v[r + lane] = x[0];
+    id[r + lane] = y[0];
+  }
+  __syncwarp();
+}
+
+// The flush. Folds the n <= CAP candidates of a buffer (bv, bi in shared
+// memory; entry e at position e ^ swz, swz < 32) into a sorted list of k2
+// entries (lv, li in shared or device memory; k2 a power of two >= CAP):
+// afterwards the list holds the k2 smallest of both by (value, id), sorted,
+// and (tv, ti) is its entry k - 1, the new bar. The buffer is sorted in
+// registers; list position k2 - 1 - e takes buffer entry e where that is
+// the smaller, which leaves a bitonic sequence holding exactly the k2
+// smallest of list and buffer (the list ascends, the reversed buffer
+// descends); a bitonic merge sorts it. Lists up to k2 = kRegFoldMaxK2 are
+// folded in registers between one load and one store (the sorted buffer
+// goes back to its place first, so its registers are free), longer ones
+// stage by stage in memory. Every lane of the warp calls it.
+template <int CAP>
+__device__ __forceinline__ void fold_buffer(float* bv, int* bi, int swz, int n, float* lv, int* li, int k2, int k,
+                                            float& tv, int& ti) {
+  constexpr int S = CAP / 32;
+  const int lane = threadIdx.x & 31;
+  __syncwarp();  // the buffer's entries and the list, written by other lanes
+  float x[S];
+  int y[S];
+#pragma unroll
+  for (int s = 0; s < S; ++s) {
+    const int e = 32 * s + lane;
+    x[s] = e < n ? bv[e ^ swz] : kInf;
+    y[s] = e < n ? bi[e ^ swz] : kEmptyId;
+  }
+  warp_sort<S>(x, y);
+  if (k2 <= kRegFoldMaxK2) {
+#pragma unroll
+    for (int s = 0; s < S; ++s) {
+      const int e = (32 * s + lane) ^ swz;
+      bv[e] = x[s];
+      bi[e] = y[s];
+    }
+    __syncwarp();
+    if (k2 == 128)
+      fold_in_registers<S, 4>(bv, bi, swz, lv, li, k, tv, ti);
+    else
+      fold_in_registers<S, 8>(bv, bi, swz, lv, li, k, tv, ti);
+  } else {
+#pragma unroll
+    for (int s = 0; s < S; ++s) {
+      const int e = 32 * s + lane, p = k2 - 1 - e;
+      if (e < n && lex_less(x[s], y[s], lv[p], li[p])) { lv[p] = x[s]; li[p] = y[s]; }
+    }
+    __syncwarp();
+    bitonic_merge(lv, li, k2);
+    tv = lv[k - 1];
+    ti = li[k - 1];
+  }
+  __syncwarp();  // the list is written before another lane reads it
+}
+
+// The lists of a warp's 16 query rows for k > 64: per row a buffer of CAP
+// candidates in shared memory (appended by the row's quad) and a sorted list
+// of k2 entries in the block's slice of the [rows, splits, k2] scratch in
+// device memory. Rows past the query rows take nothing and have no list.
+template <int STAGES, int CAP>
+struct BufRows {
+  static_assert(CAP % 32 == 0 && CAP <= kMinListLen, "the buffer is sorted in 32-entry slots and fits a list");
+  static constexpr int kIds = kBM * CAP;  // the block's buffer ids: kIds floats past its values
+  float* bv;       // row r's buffer at bv + r CAP (entry e at e ^ swz(r)), its ids kIds further
+  float* lv;       // row r's list at lv + r lstride
+  int* li;
+  int lstride;     // splits x k2
+  int live;        // the warp's rows inside the query rows
+  int cnt[2];      // buffered candidates of this thread's rows r0, r1 (quad-uniform)
+  float tv[2];     // position k - 1 of rows r0, r1
   int ti[2];
 
-  // lists: the block's [kWideBM][kMaxK] values, then as many ids
-  __device__ __forceinline__ void bind(unsigned char* lists, int warp) {
-    v = reinterpret_cast<float*>(lists) + warp * 16 * kMaxK;
-    id = reinterpret_cast<int*>(lists + (size_t)kWideBM * kMaxK * 4) + warp * 16 * kMaxK;
+  // The quads of a warp write to 8 rows at once: an XOR of the slot's bank
+  // by the row's quad keeps equal counts off one bank (the buffer's order
+  // does not matter, it is sorted at the flush).
+  static __device__ __forceinline__ int swz(int r) { return (r & 7) << 2; }
+
+  // extra: the block's shared memory past the ring, norms and barriers:
+  // [kBM][CAP] buffer values, then as many ids. (STAGES is the ring's,
+  // BlockShape's.)
+  __device__ __forceinline__ void bind(unsigned char* extra, const TopkArgs& a, int wg, int warp, int row0) {
+    const int rb = 64 * wg + 16 * warp;  // the warp's first row in the block
+    bv = reinterpret_cast<float*>(extra) + rb * CAP;
+    const size_t off = ((size_t)(row0 + rb) * gridDim.x + blockIdx.x) * a.k2;
+    lv = a.lv + off;
+    li = a.li + off;
+    lstride = gridDim.x * a.k2;
+    live = max(0, min(16, a.rows - (row0 + rb)));
   }
 
+  // The list length k2 (a field fewer in registers across the epilogue).
+  __device__ __forceinline__ int list_len() const { return lstride / (int)gridDim.x; }
+
   __device__ __forceinline__ void init() {
-    const int lane = threadIdx.x & 31;
-    for (int q = lane; q < 16 * kMaxK; q += 32) { v[q] = kInf; id[q] = kEmptyId; }
+    const int lane = threadIdx.x & 31, k2 = list_len();
+    for (int r = 0; r < live; ++r)
+      for (int q = lane; q < k2; q += 32) { lv[r * lstride + q] = kInf; li[r * lstride + q] = kEmptyId; }
+    cnt[0] = cnt[1] = 0;
     tv[0] = tv[1] = kInf;
     ti[0] = ti[1] = kEmptyId;
   }
 
+  // Flushes the rows of half H whose quads set `want` (quad-uniform), one
+  // after another, and gives their quads the new bars.
   template <int H>
-  __device__ __forceinline__ void offer_pairs(int k, float x0, float x1, int c, bool ok0, bool ok1) {
+  __device__ __forceinline__ void flush_rows(int k, bool want) {
     const int lane = threadIdx.x & 31;
-    unsigned m0 = __ballot_sync(0xffffffffu, ok0), m1 = __ballot_sync(0xffffffffu, ok1);
-    while (m0 | m1) {
-      const bool first = m0 != 0;
-      const int src = __ffs(first ? m0 : m1) - 1;
-      if (first) m0 &= m0 - 1; else m1 &= m1 - 1;
-      const float cv = __shfl_sync(0xffffffffu, first ? x0 : x1, src);
-      const int ci = __shfl_sync(0xffffffffu, first ? c : c + 1, src);
-      float tv = __shfl_sync(0xffffffffu, this->tv[H], src);  // the row's bar now
-      int ti = __shfl_sync(0xffffffffu, this->ti[H], src);
-      if (!lex_less(cv, ci, tv, ti)) continue;
-      const int r = (src >> 2) + 8 * H;
-      slist_insert(v + r * kMaxK, id + r * kMaxK, k, cv, ci, tv, ti);
-      if ((lane >> 2) == (src >> 2)) { this->tv[H] = tv; this->ti[H] = ti; }  // the row's quad
+    unsigned m = __ballot_sync(0xffffffffu, want && (lane & 3) == 0);  // bit 4 g: row g + 8 H
+    while (m) {
+      const int g = (__ffs(m) - 1) >> 2, r = g + 8 * H;
+      m &= m - 1;
+      const int n = __shfl_sync(0xffffffffu, cnt[H], 4 * g);
+      float nv;
+      int ni;
+      float* v = bv + r * CAP;
+      fold_buffer<CAP>(v, reinterpret_cast<int*>(v + kIds), swz(r), n, lv + (size_t)r * lstride,
+                       li + (size_t)r * lstride, list_len(), k, nv, ni);
+      if ((lane >> 2) == g) {
+        cnt[H] = 0;
+        tv[H] = nv;
+        ti[H] = ni;
+      }
     }
   }
 
-  __device__ __forceinline__ void write(const TopkArgs& a, int wrow0, int split) const {
+  // Append row H's survivors of one column pair (x0 at column c, x1 at
+  // c + 1, where ok0 / ok1), at most 8 a row, flushing first the rows
+  // whose buffers they would overflow.
+  template <int H>
+  __device__ __forceinline__ void offer_pairs(int k, float x0, float x1, int c, bool ok0, bool ok1) {
+    const int lane = threadIdx.x & 31, qbase = lane & ~3;
+    const unsigned below = (1u << (lane & 3)) - 1;
+    unsigned qa = (__ballot_sync(0xffffffffu, ok0) >> qbase) & 0xFu;
+    unsigned qb = (__ballot_sync(0xffffffffu, ok1) >> qbase) & 0xFu;
+    const bool full = cnt[H] + __popc(qa) + __popc(qb) > CAP;
+    if (__any_sync(0xffffffffu, full)) {
+      flush_rows<H>(k, full);
+      ok0 = ok0 && lex_less(x0, c, tv[H], ti[H]);  // the flushed rows' bars rose
+      ok1 = ok1 && lex_less(x1, c + 1, tv[H], ti[H]);
+      qa = (__ballot_sync(0xffffffffu, ok0) >> qbase) & 0xFu;
+      qb = (__ballot_sync(0xffffffffu, ok1) >> qbase) & 0xFu;
+    }
+    const int r = (lane >> 2) + 8 * H, z = swz(r);
+    float* v = bv + r * CAP;
+    int* id = reinterpret_cast<int*>(v + kIds);
+    if (ok0) {
+      const int p = (cnt[H] + __popc(qa & below)) ^ z;
+      v[p] = x0;
+      id[p] = c;
+    }
+    if (ok1) {
+      const int p = (cnt[H] + __popc(qa) + __popc(qb & below)) ^ z;
+      v[p] = x1;
+      id[p] = c + 1;
+    }
+    cnt[H] += __popc(qa) + __popc(qb);
+  }
+
+  // The last flushes, then the first k entries of each list out to the
+  // [rows, splits, k] lists; the warp's rows start at query row wrow0.
+  __device__ __forceinline__ void write(const TopkArgs& a, int wrow0, int split) {
+    flush_rows<0>(a.k, cnt[0] > 0);
+    flush_rows<1>(a.k, cnt[1] > 0);
+    __syncwarp();
     const int lane = threadIdx.x & 31;
-    for (int r = 0; r < 16; ++r) {
-      const int qr = wrow0 + r;
-      if (qr >= a.rows) continue;
-      const size_t out = ((size_t)qr * gridDim.x + split) * a.k;
+    for (int r = 0; r < live; ++r) {
+      const size_t out = ((size_t)(wrow0 + r) * gridDim.x + split) * a.k;
       for (int q = lane; q < a.k; q += 32) {
-        a.ov[out + q] = v[r * kMaxK + q];
-        a.oi[out + q] = id[r * kMaxK + q] == kEmptyId ? -1 : id[r * kMaxK + q] + a.col_id0;
+        const int x = li[r * lstride + q];
+        a.ov[out + q] = lv[r * lstride + q];
+        a.oi[out + q] = x == kEmptyId ? -1 : x + a.col_id0;
       }
     }
   }
 };
 
-// Insert (cv, ci), which beats position k - 1, into the sorted list (v, id)
-// of k entries in device memory; all lanes of the warp call with it. As
-// slist_insert, lane l reads and writes only its own positions l + 32 s, so
-// it sees its own stores and no other lane's; the list is walked in groups
-// of kGroup chunks of 32 (one load each, issued together): groups before
-// the candidate's position are only counted, the rest shift by one.
-// (tv, ti) is position k - 1 afterwards.
-__device__ __forceinline__ void glist_insert(float* v, int* id, int k, float cv, int ci, float& tv, int& ti) {
-  const int lane = threadIdx.x & 31;
-  int p = -1;      // the candidate's position, once its group is reached
-  int before = 0;  // entries before the candidate in the groups read so far
-  float cw = kInf;  // lane 31's entry of the previous chunk before the insert
-  int cwi = kEmptyId;
-  float lv = kInf;  // position k - 1 afterwards (held by lane (k - 1) % 32)
-  int li = kEmptyId;
-  for (int g0 = 0; g0 < k; g0 += 32 * kGroup) {
-    float x[kGroup];
-    int y[kGroup];
-#pragma unroll
-    for (int s = 0; s < kGroup; ++s) {
-      const int q = g0 + 32 * s + lane;
-      x[s] = q < k ? v[q] : kInf;
-      y[s] = q < k ? id[q] : kEmptyId;
-    }
-    if (p < 0) {
-      int c = 0;  // sorted: the entries before the candidate are a prefix
-#pragma unroll
-      for (int s = 0; s < kGroup; ++s)
-        c += __popc(__ballot_sync(0xffffffffu, g0 + 32 * s + lane < k && lex_less(x[s], y[s], cv, ci)));
-      before += c;
-      if (c == 32 * kGroup) {  // the whole group stays where it is
-        cw = __shfl_sync(0xffffffffu, x[kGroup - 1], 31);
-        cwi = __shfl_sync(0xffffffffu, y[kGroup - 1], 31);
-        continue;
-      }
-      p = before;
-    }
-#pragma unroll
-    for (int s = 0; s < kGroup; ++s) {
-      const int q = g0 + 32 * s + lane;
-      float u = __shfl_up_sync(0xffffffffu, x[s], 1);  // position q takes q - 1
-      int j = __shfl_up_sync(0xffffffffu, y[s], 1);
-      const float nw = __shfl_sync(0xffffffffu, x[s], 31);
-      const int nwi = __shfl_sync(0xffffffffu, y[s], 31);
-      if (lane == 0) { u = cw; j = cwi; }
-      cw = nw;
-      cwi = nwi;
-      if (q < k && q >= p) {
-        if (q == p) { u = cv; j = ci; }
-        v[q] = u;
-        id[q] = j;
-        x[s] = u;
-        y[s] = j;
-      }
-      if (q == k - 1) { lv = x[s]; li = y[s]; }
-    }
-  }
-  tv = __shfl_sync(0xffffffffu, lv, (k - 1) & 31);
-  ti = __shfl_sync(0xffffffffu, li, (k - 1) & 31);
-}
-
-// The lists of a warp's 16 query rows for k > kMaxK, in device memory: row
-// r's list is the block's slice of the [rows, splits, k] output, k entries
-// at v + r * stride. Rows past the query rows have no slice and take
-// nothing.
-struct GmemRows {
-  float* v;
-  int* id;
-  size_t stride;  // splits x k
-  int live;       // the warp's rows inside the query rows
-  int len;        // k
-  float tv[2];  // position k - 1 of this thread's rows r0, r1
-  int ti[2];
-
-  __device__ __forceinline__ void bind(const TopkArgs& a, int wrow0, int split) {
-    const size_t off = ((size_t)wrow0 * gridDim.x + split) * a.k;
-    v = a.ov + off;
-    id = a.oi + off;
-    stride = (size_t)gridDim.x * a.k;
-    live = min(16, a.rows - wrow0);
-    len = a.k;
-  }
-
-  __device__ __forceinline__ void init() {
-    const int lane = threadIdx.x & 31;
-    for (int r = 0; r < live; ++r)
-      for (int q = lane; q < len; q += 32) { v[r * stride + q] = kInf; id[r * stride + q] = kEmptyId; }
-    tv[0] = tv[1] = kInf;
-    ti[0] = ti[1] = kEmptyId;
-  }
-
-  template <int H>
-  __device__ __forceinline__ void offer_pairs(int k, float x0, float x1, int c, bool ok0, bool ok1) {
-    const int lane = threadIdx.x & 31;
-    unsigned m0 = __ballot_sync(0xffffffffu, ok0), m1 = __ballot_sync(0xffffffffu, ok1);
-    while (m0 | m1) {
-      const bool first = m0 != 0;
-      const int src = __ffs(first ? m0 : m1) - 1;
-      if (first) m0 &= m0 - 1; else m1 &= m1 - 1;
-      const float cv = __shfl_sync(0xffffffffu, first ? x0 : x1, src);
-      const int ci = __shfl_sync(0xffffffffu, first ? c : c + 1, src);
-      float tv = __shfl_sync(0xffffffffu, this->tv[H], src);  // the row's bar now
-      int ti = __shfl_sync(0xffffffffu, this->ti[H], src);
-      if (!lex_less(cv, ci, tv, ti)) continue;
-      const size_t r = (src >> 2) + 8 * H;
-      glist_insert(v + r * stride, id + r * stride, k, cv, ci, tv, ti);
-      if ((lane >> 2) == (src >> 2)) { this->tv[H] = tv; this->ti[H] = ti; }  // the row's quad
-    }
-  }
-
-  // The lists are the output already: empty slots to -1, ids made global.
-  __device__ __forceinline__ void write(const TopkArgs& a, int, int) const {
-    const int lane = threadIdx.x & 31;
-    for (int r = 0; r < live; ++r)
-      for (int q = lane; q < len; q += 32) {
-        const int x = id[r * stride + q];
-        id[r * stride + q] = x == kEmptyId ? -1 : x + a.col_id0;
-      }
-  }
-};
-
-// Block shape of an instance: consumer warpgroups (64 query rows each),
-// ring stages, list bytes in shared memory, the dynamic shared memory, and
-// whether the lists live in device memory.
+// Block shape of an instance: ring stages, whether the lists are buffered
+// (BufRows), and the dynamic shared memory.
 template <class Rows>
 struct BlockShape {
-  static constexpr int warpgroups = 2, stages = kStages;
-  static constexpr size_t lists = 0, smem = kSmemBytes;
-  static constexpr bool gmem = false;
+  static constexpr int stages = kStages;
+  static constexpr bool buffered = false;
+  static constexpr size_t smem = kSmemBytes;
 };
-template <>
-struct BlockShape<SmemRows> {
-  static constexpr int warpgroups = 1, stages = kWideStages;
-  static constexpr size_t lists = kListBytes, smem = kWideSmemBytes;
-  static constexpr bool gmem = false;
+template <int STAGES, int CAP>
+struct BlockShape<BufRows<STAGES, CAP>> {
+  static constexpr int stages = STAGES;
+  static constexpr bool buffered = true;
+  static constexpr size_t smem =
+      1024 + (size_t)STAGES * kStageBytes + 2 * kBN * 4 + 2 * STAGES * 8 + (size_t)kBM * CAP * 8;
 };
-template <>
-struct BlockShape<GmemRows> {
-  static constexpr int warpgroups = 2, stages = kStages;
-  static constexpr size_t lists = 0, smem = kSmemBytes;
-  static constexpr bool gmem = true;
-};
+
+// The buffered instance (header note): every k > 64, a 4-stage ring and
+// 64-entry buffers.
+using WideRows = BufRows<kStages, 64>;
+static_assert(BlockShape<WideRows>::smem <= kMaxSmem, "a block takes at most 227 KB of shared memory on sm_90");
 
 // ---------------------------------------------------------------------------
 // The tile kernel
@@ -719,20 +839,20 @@ struct BlockShape<GmemRows> {
     break;
 
 template <class Rows>
-__global__ void __launch_bounds__(128 * (BlockShape<Rows>::warpgroups + 1), 1)
+__global__ void __launch_bounds__(384, 1)
     topk_tiles(const __grid_constant__ CUtensorMap qmap, const __grid_constant__ CUtensorMap cmap,
-               const TopkArgs a) {
+               const __grid_constant__ TopkArgs a) {
   extern __shared__ unsigned char smem_raw[];
   unsigned char* ring = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);  // swizzle atoms: 1 KB
   const int kb = a.kb, k = a.k;
-  constexpr int WG = BlockShape<Rows>::warpgroups, S = BlockShape<Rows>::stages;
-  constexpr int BM = 64 * WG, QBOX = BM * kBoxK * 2, STAGE = QBOX + kBoxBytes;  // query box, then corpus box
+  constexpr int S = BlockShape<Rows>::stages;
+  constexpr int QBOX = kBoxBytes, STAGE = kStageBytes;  // query box, then corpus box
   float* cn_s = reinterpret_cast<float*>(ring + S * STAGE);  // [2][kBN] norms, one copy per warpgroup
   uint64_t* full = reinterpret_cast<uint64_t*>(cn_s + 2 * kBN);
   uint64_t* empty = full + S;
-  unsigned char* lists = reinterpret_cast<unsigned char*>(empty + S);  // SmemRows only
+  unsigned char* extra = reinterpret_cast<unsigned char*>(empty + S);  // BufRows' buffers
 
-  const int split = blockIdx.x, row0 = blockIdx.y * BM;
+  const int split = blockIdx.x, row0 = blockIdx.y * kBM;
   const int all_tiles = (a.n_cols + kBN - 1) / kBN;
   const int tile_lo = (int)((long long)split * all_tiles / gridDim.x);
   const int n_tiles = (int)((long long)(split + 1) * all_tiles / gridDim.x) - tile_lo;
@@ -742,17 +862,17 @@ __global__ void __launch_bounds__(128 * (BlockShape<Rows>::warpgroups + 1), 1)
   if (threadIdx.x == 0) {
     for (int s = 0; s < S; ++s) {
       mbar_init(smem_u32(&full[s]), 1);     // the producer's expect_tx arrival + the bytes
-      mbar_init(smem_u32(&empty[s]), 128 * WG);  // every consumer thread
+      mbar_init(smem_u32(&empty[s]), 256);  // every consumer thread
     }
     asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
   }
   __syncthreads();
 
   const int wg = threadIdx.x / 128;
-  if (wg == WG) {
+  if (wg == 2) {
     // ---------------- producer ----------------
-    if constexpr (WG == 2) asm volatile("setmaxnreg.dec.sync.aligned.u32 40;");
-    if (threadIdx.x == 128 * WG) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;");
+    if (threadIdx.x == 256) {
       const int items = n_tiles * kb;
       for (int it = 0; it < items; ++it) {
         const int s = it % S, round = it / S;
@@ -766,8 +886,7 @@ __global__ void __launch_bounds__(128 * (BlockShape<Rows>::warpgroups + 1), 1)
     }
   } else {
     // ---------------- consumers ----------------
-    // (one consumer warpgroup: 256 threads may take 255 registers each)
-    if constexpr (WG == 2) asm volatile("setmaxnreg.inc.sync.aligned.u32 232;");
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 232;");
     const int tid = threadIdx.x & 127, warp = tid >> 5, lane = tid & 31;
     const int r0 = 64 * wg + 16 * warp + (lane >> 2), r1 = r0 + 8;  // this thread's two rows (its quad's)
     const int self0 = a.self_excl ? a.self_col0 + row0 + r0 : -1;
@@ -779,8 +898,7 @@ __global__ void __launch_bounds__(128 * (BlockShape<Rows>::warpgroups + 1), 1)
       if (live1) qn1 = a.qn[row0 + r1];
     }
     Rows R;  // this warp's 16 rows' lists
-    if constexpr (BlockShape<Rows>::lists > 0) R.bind(lists, warp);
-    if constexpr (BlockShape<Rows>::gmem) R.bind(a, row0 + 64 * wg + 16 * warp, split);
+    if constexpr (BlockShape<Rows>::buffered) R.bind(extra, a, wg, warp, row0);
     R.init();
     float* cnw = cn_s + wg * kBN;
     const uint32_t ring_a = smem_u32(ring);
@@ -883,80 +1001,109 @@ __global__ void __launch_bounds__(kMergeThreads) topk_merge(const float* __restr
   }
 }
 
-// The same fold for 64 < k <= kMaxK: each warp's list in shared memory.
-__global__ void __launch_bounds__(kMergeThreads) topk_merge_wide(const float* __restrict__ pv,
-                                                                 const int* __restrict__ pi,
-                                                                 float* __restrict__ ov, int* __restrict__ oi,
-                                                                 int rows, int splits, int k) {
-  __shared__ float sv[kMergeThreads / 32][kMaxK];
-  __shared__ int si[kMergeThreads / 32][kMaxK];
-  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
-  const int r = blockIdx.x * (kMergeThreads / 32) + w;
-  if (r >= rows) return;  // whole warp; no block-wide barrier below
-  float* v = sv[w];
-  int* id = si[w];
-  for (int q = lane; q < kMaxK; q += 32) { v[q] = kInf; id[q] = kEmptyId; }
-  float tv = kInf;
-  int ti = kEmptyId;
-  const int n = splits * k;
-  const size_t base = (size_t)r * n;
-  for (int t0 = 0; t0 < n; t0 += 32) {
-    const int t = t0 + lane;
-    float c = kInf;
-    int cid = kEmptyId;
-    if (t < n && pi[base + t] >= 0) {
-      c = pv[base + t];
-      cid = pi[base + t];
-    }
-    unsigned m = __ballot_sync(0xffffffffu, c < kInf && lex_less(c, cid, tv, ti));
-    while (m) {
-      const int src = __ffs(m) - 1;
-      m &= m - 1;
-      const float cv = __shfl_sync(0xffffffffu, c, src);
-      const int ci = __shfl_sync(0xffffffffu, cid, src);
-      if (lex_less(cv, ci, tv, ti)) slist_insert(v, id, k, cv, ci, tv, ti);  // the bar rises as the list fills
-    }
-  }
-  for (int q = lane; q < k; q += 32) {
-    ov[(size_t)r * k + q] = v[q];
-    oi[(size_t)r * k + q] = id[q] == kEmptyId ? -1 : id[q];
-  }
-}
+// One warp's list of k2 entries and its buffer in topk_merge_lists.
+struct MergeWarp {
+  float* bv;  // the warp's kMergeCap-entry buffer (shared memory)
+  int* bi;
+  float* lv;  // the warp's list (shared or device memory)
+  int* li;
+  int k, k2;
+  int cnt;   // buffered entries
+  float tv;  // the bar: list entry k - 1
+  int ti;
 
-// The same fold for k > kMaxK: each warp's list is its row of the [rows, k]
-// output, in device memory (glist_insert).
-__global__ void __launch_bounds__(kMergeThreads) topk_merge_gmem(const float* __restrict__ pv,
-                                                                 const int* __restrict__ pi, float* ov,
-                                                                 int* oi, int rows, int splits, int k) {
-  const int lane = threadIdx.x & 31;
-  const int r = blockIdx.x * (kMergeThreads / 32) + (threadIdx.x >> 5);
-  if (r >= rows) return;  // whole warp; no block-wide barrier below
-  float* v = ov + (size_t)r * k;
-  int* id = oi + (size_t)r * k;
-  for (int q = lane; q < k; q += 32) { v[q] = kInf; id[q] = kEmptyId; }
-  float tv = kInf;
-  int ti = kEmptyId;
-  const int n = splits * k;
-  const size_t base = (size_t)r * n;
-  for (int t0 = 0; t0 < n; t0 += 32) {
-    const int t = t0 + lane;
-    float c = kInf;
-    int cid = kEmptyId;
-    if (t < n && pi[base + t] >= 0) {
-      c = pv[base + t];
-      cid = pi[base + t];
+  // Offer (c, cid) where `want`; every lane calls.
+  __device__ __forceinline__ void offer(float c, int cid, bool want) {
+    const int lane = threadIdx.x & 31;
+    bool ok = want && lex_less(c, cid, tv, ti);
+    unsigned m = __ballot_sync(0xffffffffu, ok);
+    if (cnt + __popc(m) > kMergeCap) {
+      fold_buffer<kMergeCap>(bv, bi, 0, cnt, lv, li, k2, k, tv, ti);
+      cnt = 0;
+      ok = ok && lex_less(c, cid, tv, ti);
+      m = __ballot_sync(0xffffffffu, ok);
     }
-    unsigned m = __ballot_sync(0xffffffffu, c < kInf && lex_less(c, cid, tv, ti));
-    while (m) {
-      const int src = __ffs(m) - 1;
-      m &= m - 1;
-      const float cv = __shfl_sync(0xffffffffu, c, src);
-      const int ci = __shfl_sync(0xffffffffu, cid, src);
-      if (lex_less(cv, ci, tv, ti)) glist_insert(v, id, k, cv, ci, tv, ti);  // the bar rises as the list fills
+    if (ok) {
+      const int p = cnt + __popc(m & ((1u << lane) - 1));
+      bv[p] = c;
+      bi[p] = cid;
+    }
+    cnt += __popc(m);
+  }
+
+  __device__ __forceinline__ void flush() {
+    if (cnt > 0) fold_buffer<kMergeCap>(bv, bi, 0, cnt, lv, li, k2, k, tv, ti);
+    cnt = 0;
+    __syncwarp();
+  }
+};
+
+// The fold for k > 64: W = merge_warps(splits) warps per row (8 / W rows a
+// block). Warp w of a row offers the entries of lists w, w + W, ... 32 at a
+// time to its own list through a buffer (append past the bar, fold_buffer
+// when it could overflow); then, halving, warp w folds the list of warp
+// w + W / 2 into its own, and warp 0 writes the first k. The warps' lists
+// (k2 entries) lie in dynamic shared memory up to k2 = kMergeSmemMaxK2,
+// above in the [rows, kMergeWarps, k2] scratch sv / si.
+__global__ void __launch_bounds__(kMergeThreads, 1) topk_merge_lists(const float* __restrict__ pv,
+                                                                  const int* __restrict__ pi,
+                                                                  float* __restrict__ ov, int* __restrict__ oi,
+                                                                  float* sv, int* si, int rows, int splits,
+                                                                  int k, int k2, int wpr) {
+  extern __shared__ unsigned char merge_lists[];
+  __shared__ float bufv[kMergeWarps][kMergeCap];
+  __shared__ int bufi[kMergeWarps][kMergeCap];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, w = warp % wpr;
+  const int r = blockIdx.x * (kMergeWarps / wpr) + warp / wpr;
+  const bool live = r < rows;  // dead warps still reach every __syncthreads
+  float* lv;
+  int* li;
+  if (sv) {
+    const size_t off = ((size_t)r * kMergeWarps + w) * k2;
+    lv = sv + off;
+    li = si + off;
+  } else {
+    lv = reinterpret_cast<float*>(merge_lists) + (size_t)warp * k2;
+    li = reinterpret_cast<int*>(merge_lists + (size_t)kMergeWarps * k2 * 4) + (size_t)warp * k2;
+  }
+  MergeWarp mw{bufv[warp], bufi[warp], lv, li, k, k2, 0, kInf, kEmptyId};
+  if (live) {
+    for (int q = lane; q < k2; q += 32) { lv[q] = kInf; li[q] = kEmptyId; }
+    for (int l = w; l < splits; l += wpr) {
+      const size_t base = ((size_t)r * splits + l) * k;
+      for (int t0 = 0; t0 < k; t0 += 128) {  // four loads in flight
+        float c[4];
+        int cid[4];
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+          const int t = t0 + 32 * u + lane;
+          const int x = t < k ? pi[base + t] : -1;
+          c[u] = x >= 0 ? pv[base + t] : kInf;
+          cid[u] = x >= 0 ? x : kEmptyId;
+        }
+#pragma unroll
+        for (int u = 0; u < 4; ++u) mw.offer(c[u], cid[u], c[u] < kInf);
+      }
+    }
+    mw.flush();
+  }
+  for (int half = wpr >> 1; half > 0; half >>= 1) {
+    __syncthreads();  // the partner's list is complete
+    if (live && w < half) {
+      const float* ov2 = lv + (size_t)half * k2;  // warp w + half's list
+      const int* oi2 = li + (size_t)half * k2;
+      for (int q = lane; q < ((k + 31) & ~31); q += 32) {  // only its first k can be among the k smallest
+        const float c = q < k ? ov2[q] : kInf;
+        mw.offer(c, q < k ? oi2[q] : kEmptyId, c < kInf);
+      }
+      mw.flush();
     }
   }
-  for (int q = lane; q < k; q += 32)
-    if (id[q] == kEmptyId) id[q] = -1;
+  if (live && w == 0)
+    for (int q = lane; q < k; q += 32) {
+      ov[(size_t)r * k + q] = lv[q];
+      oi[(size_t)r * k + q] = li[q] == kEmptyId ? -1 : li[q];
+    }
 }
 
 // ---------------------------------------------------------------------------
@@ -1006,58 +1153,74 @@ static void launch_tiles(const CUtensorMap& qmap, const CUtensorMap& cmap, const
   using B = BlockShape<Rows>;
   static bool attr_set = false;
   if (!attr_set) {
-    cudaFuncSetAttribute(topk_tiles<Rows>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)B::smem);
+    cudaFuncSetAttribute(topk_tiles<Rows>, cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
     attr_set = true;
   }
-  topk_tiles<Rows><<<dim3(col_splits, row_blocks), 128 * (B::warpgroups + 1), B::smem, stream>>>(qmap, cmap, a);
+  topk_tiles<Rows><<<dim3(col_splits, row_blocks), 384, B::smem, stream>>>(qmap, cmap, a);
 }
 
 // Folds `lists` sorted lists of k entries per row, pv/pi [rows, lists, k]
-// (ids -1 = empty), into ov/oi [rows, k]: one warp per row, its list in
-// registers, shared memory or device memory by k.
-static void launch_merge(const float* pv, const int* pi, float* ov, int* oi, int rows, int lists, int k,
-                         cudaStream_t stream) {
-  const int warps = kMergeThreads / 32, blocks = (rows + warps - 1) / warps;
-  if (k <= kRegMaxK)
+// (ids -1 = empty, last), into ov/oi [rows, k]: up to k = 64 one warp per
+// row with its list in registers, above topk_merge_lists, whose lists above
+// k2 = kMergeSmemMaxK2 lie in the scratch mv / mi [rows, kMergeWarps, k2].
+static int launch_merge(const float* pv, const int* pi, float* ov, int* oi, float* mv, int* mi, int rows,
+                        int lists, int k, cudaStream_t stream) {
+  if (k <= kRegMaxK) {
+    const int blocks = (rows + kMergeWarps - 1) / kMergeWarps;
     topk_merge<<<blocks, kMergeThreads, 0, stream>>>(pv, pi, ov, oi, rows, lists, k);
-  else if (k <= kMaxK)
-    topk_merge_wide<<<blocks, kMergeThreads, 0, stream>>>(pv, pi, ov, oi, rows, lists, k);
-  else
-    topk_merge_gmem<<<blocks, kMergeThreads, 0, stream>>>(pv, pi, ov, oi, rows, lists, k);
+    return 0;
+  }
+  const int k2 = list_len(k), wpr = merge_warps(lists), rpb = kMergeWarps / wpr;
+  const bool in_smem = k2 <= kMergeSmemMaxK2;
+  if (!in_smem && (!mv || !mi)) return (int)cudaErrorInvalidValue;
+  static bool attr_set = false;
+  if (!attr_set) {
+    cudaFuncSetAttribute(topk_merge_lists, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                         kMergeWarps * kMergeSmemMaxK2 * 8);
+    attr_set = true;
+  }
+  topk_merge_lists<<<(rows + rpb - 1) / rpb, kMergeThreads, in_smem ? (size_t)kMergeWarps * k2 * 8 : 0, stream>>>(
+      pv, pi, ov, oi, in_smem ? nullptr : mv, in_smem ? nullptr : mi, rows, lists, k, k2, wpr);
+  return 0;
 }
 
 // Checks the plan of ops/tile_plan.py, launches the tile kernel and, with
 // more than one column split, the merge. The query rows are qbase [a.rows,
-// d]; the corpus is cbase [c_rows, d].
-static int topk_launch(const void* qbase, const void* cbase, int c_rows, int d, TopkArgs a,
-                       int row_blocks, int col_splits, float* pv, int* pi, float* ov, int* oi,
-                       cudaStream_t stream) {
-  const bool wide = a.k > kRegMaxK && a.k <= kMaxK;
-  const int bm = wide ? kWideBM : kBM;  // query rows per block
-  if (a.k < 1 || a.rows < 1 || row_blocks != (a.rows + bm - 1) / bm ||
+// d]; the corpus is cbase [c_rows, d]. lv / li: the [rows, splits, k2]
+// lists of a launch at k > kRegMaxK; mv / mi: the
+// merge's scratch above k2 = kMergeSmemMaxK2 (both null where not needed).
+static int topk_launch(const void* qbase, const void* cbase, int c_rows, int d, TopkArgs a, int row_blocks,
+                       int col_splits, float* pv, int* pi, float* ov, int* oi, float* lv, int* li, float* mv,
+                       int* mi, cudaStream_t stream) {
+  const bool reg = a.k <= kRegMaxK;
+  a.k2 = reg ? 0 : list_len(a.k);
+  if (a.k < 1 || a.rows < 1 || row_blocks != (a.rows + kBM - 1) / kBM || (!reg && (!lv || !li)) ||
       col_splits < 1 || (col_splits > 1 && col_splits > (a.n_cols + kBN - 1) / kBN) ||
-      (col_splits > 1 && (!pv || !pi)) || !bf16_rows_ok(qbase, d) || !bf16_rows_ok(cbase, d))
-    return (int)cudaErrorInvalidValue;
+      (col_splits > 1 && (!pv || !pi || (a.k2 > kMergeSmemMaxK2 && (!mv || !mi)))) || !bf16_rows_ok(qbase, d) ||
+      !bf16_rows_ok(cbase, d))
+    return (int)cudaErrorInvalidValue;  // checked before any launch: the merge's scratch too
   CUtensorMap qmap, cmap;
-  if (!make_map(&qmap, qbase, a.rows, d, bm) || !make_map(&cmap, cbase, c_rows, d, kBN))
+  if (!make_map(&qmap, qbase, a.rows, d, kBM) || !make_map(&cmap, cbase, c_rows, d, kBN))
     return (int)cudaErrorInvalidValue;
   a.kb = feature_boxes(d);
   a.ov = col_splits > 1 ? pv : ov;
   a.oi = col_splits > 1 ? pi : oi;
+  a.lv = lv;
+  a.li = li;
   // quad-owned lists up to k = 16 (eight rows insert at once), warp-wide in
-  // registers up to 64, warp-wide in shared memory up to kMaxK, warp-wide
-  // in device memory above
+  // registers up to 64, buffered above
   if (a.k <= 4)
     launch_tiles<QuadRows<1>>(qmap, cmap, a, row_blocks, col_splits, stream);
   else if (a.k <= 16)
     launch_tiles<QuadRows<4>>(qmap, cmap, a, row_blocks, col_splits, stream);
-  else if (a.k <= kRegMaxK)
+  else if (reg)
     launch_tiles<WarpRows>(qmap, cmap, a, row_blocks, col_splits, stream);
-  else if (wide)
-    launch_tiles<SmemRows>(qmap, cmap, a, row_blocks, col_splits, stream);
   else
-    launch_tiles<GmemRows>(qmap, cmap, a, row_blocks, col_splits, stream);
-  if (col_splits > 1) launch_merge(pv, pi, ov, oi, a.rows, col_splits, a.k, stream);
+    launch_tiles<WideRows>(qmap, cmap, a, row_blocks, col_splits, stream);
+  if (col_splits > 1) {
+    const int rc = launch_merge(pv, pi, ov, oi, mv, mi, a.rows, col_splits, a.k, stream);
+    if (rc) return rc;
+  }
   return (int)cudaGetLastError();
 }
 

@@ -4,9 +4,9 @@ Counterpart of the JAX package's ``ops/pallas_topk.py``. On a CUDA tensor
 :func:`flat_topk` launches ``csrc/flat_topk.cu`` (query rounding, the TMA +
 wgmma tile kernel over column splits, then a merge launch; the grid comes
 from ``ops/tile_plan.plan_launch``) or raises; on a CPU tensor it runs the
-plain version, ``ops/distance.flat_search``. Nothing on the card's path uses
-the plain version. The kernel takes features padded to a multiple of 16
-(``distance.pad_features``).
+plain version, ``ops/distance.flat_search``. Nothing on the card's path
+uses the plain version. The kernel takes features padded to a multiple of
+16 (``distance.pad_features``).
 """
 
 from __future__ import annotations
@@ -17,7 +17,7 @@ from typing import Optional
 import torch
 
 from .distance import FEATURE_ALIGN, flat_search
-from .tile_plan import check_k, multiprocessors, plan_launch
+from .tile_plan import check_k, list_entries, merge_entries, multiprocessors, plan_launch, scratch
 
 
 
@@ -31,10 +31,14 @@ def _lib():
         from . import cuda_build
 
         fn = cuda_build.load("flat_topk").flat_topk_launch
-        fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_void_p] * 13 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
         _launch = fn
     return _launch
+
+
+def _ptr(t: Optional[torch.Tensor]):
+    return t.data_ptr() if t is not None else None
 
 
 def flat_topk(q: torch.Tensor, e: torch.Tensor, en: Optional[torch.Tensor], valid_n: int, k: int,
@@ -70,13 +74,14 @@ def flat_topk(q: torch.Tensor, e: torch.Tensor, en: Optional[torch.Tensor], vali
     if plan.col_splits > 1:
         pv = torch.empty((b, plan.col_splits, k), dtype=torch.float32, device=dev)
         pi = torch.empty((b, plan.col_splits, k), dtype=torch.int32, device=dev)
+    lv, li = scratch(list_entries(plan, b, k), dev)
+    mv, mi = scratch(merge_entries(b, k) if plan.col_splits > 1 else 0, dev)
     ov = torch.empty((b, k), dtype=torch.float32, device=dev)
     oi = torch.empty((b, k), dtype=torch.int32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     rc = _lib()(q.data_ptr(), e.data_ptr(), en.data_ptr() if l2 else None, qb.data_ptr(), qn.data_ptr(),
-                pv.data_ptr() if pv is not None else None, pi.data_ptr() if pi is not None else None,
-                ov.data_ptr(), oi.data_ptr(), b, n, d, valid_n, k, int(l2), plan.row_blocks, plan.col_splits,
-                stream)
+                _ptr(pv), _ptr(pi), ov.data_ptr(), oi.data_ptr(), _ptr(lv), _ptr(li), _ptr(mv), _ptr(mi), b, n, d,
+                valid_n, k, int(l2), plan.row_blocks, plan.col_splits, stream)
     if rc != 0:
         raise RuntimeError(f"flat_topk kernel launch failed: cudaError {rc}")
     flat_topk.launches += 1

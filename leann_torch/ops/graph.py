@@ -41,8 +41,8 @@ from .tile_plan import TILE_COLS
 
 logger = logging.getLogger(__name__)
 
-# query rows per knn_panel call: on the card one launch then covers ~2K
-# blocks of 64 rows
+# query rows per knn_panel call: on the card one launch then covers ~1K
+# blocks of 128 rows
 KNN_ROWS_PER_LAUNCH = 1 << 17
 # bound on the prune's per-block tensors ([B, C, D] candidate rows + [B, C, C])
 PRUNE_BLOCK_BYTES = 256 << 20
@@ -795,6 +795,15 @@ def build_graph(
         keep_closest = r // 4
     rc_tag = f"_rc{reverse_candidates}" if reverse_candidates > 0 else ""
     sharded = n > exact_knn_max_n(d, c, dev)  # the bf16 matrix and the lists outgrow the card
+    # past the card the JAX package reads LEANN_KNN_MODE: "spill" and
+    # "descent" select its approximate k-NN, which the port does not have;
+    # any other value, or none, the exact pass. Below the card it is not read
+    knn_mode = os.environ.get("LEANN_KNN_MODE", "exact") if sharded else "small"
+    if knn_mode in ("spill", "descent"):
+        from ..backends.common import not_ported
+
+        raise not_ported(f"LEANN_KNN_MODE={knn_mode} (the approximate k-NN past the card's memory)",
+                         "ROADMAP.md §A #6")
     t0 = time.time()
     knn_path = prune_path = key = None
     if checkpoint_dir:

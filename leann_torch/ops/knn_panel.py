@@ -28,7 +28,7 @@ import numpy as np
 import torch
 
 from .distance import FEATURE_ALIGN, INF, pad_features, stable_topk_smallest
-from .tile_plan import check_k, multiprocessors, plan_launch
+from .tile_plan import check_k, list_entries, merge_entries, multiprocessors, plan_launch, scratch
 
 # query rows per [rows, N] distance block of the plain version
 PLAIN_ROWS = 1024
@@ -134,10 +134,10 @@ def _lib():
 
         lib = cuda_build.load("knn_panel")
         panel = lib.knn_panel_launch
-        panel.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
+        panel.argtypes = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
         panel.restype = ctypes.c_int
         merge = lib.topk_merge_launch
-        merge.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+        merge.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
         merge.restype = ctypes.c_int
         _launch = (panel, merge)
     return _launch
@@ -182,10 +182,12 @@ def _panel_launch(q, qn, c, cn, k: int, n_real_cols: int, col_id0: int, q_id0: i
     dev = q.device
     plan = plan_launch(s_rows, n_real_cols, k, q.shape[1], multiprocessors(dev))
     pv, pi, ov, oi = _outputs(s_rows, k, plan.col_splits, dev)
+    lv, li = scratch(list_entries(plan, s_rows, k), dev)
+    mv, mi = scratch(merge_entries(s_rows, k) if plan.col_splits > 1 else 0, dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     rc = _lib()[0](q.data_ptr(), qn.data_ptr(), c.data_ptr(), cn.data_ptr(), _ptr(pv), _ptr(pi), ov.data_ptr(),
-                   oi.data_ptr(), s_rows, m, q.shape[1], n_real_cols, int(col_id0), int(q_id0), k,
-                   plan.row_blocks, plan.col_splits, stream)
+                   oi.data_ptr(), _ptr(lv), _ptr(li), _ptr(mv), _ptr(mi), s_rows, m, q.shape[1], n_real_cols,
+                   int(col_id0), int(q_id0), k, plan.row_blocks, plan.col_splits, stream)
     if rc != 0:
         raise RuntimeError(f"{who} kernel launch failed: cudaError {rc}")
     return oi, ov
@@ -239,9 +241,10 @@ knn_panel_ext.launches = 0
 
 def topk_merge(vals: torch.Tensor, ids: torch.Tensor):
     """Fold L sorted lists per row, vals f32[S, L, k] / ids i32[S, L, k]
-    (-1 empty), into the k smallest by (distance, id) -> (ids i32[S, k],
-    vals f32[S, k]). On the card the merge kernel of the k-NN library (one
-    warp per row; its list in registers, shared or device memory by k)."""
+    (-1 empty, last), into the k smallest by (distance, id) -> (ids
+    i32[S, k], vals f32[S, k]). On the card the merge kernel of the k-NN
+    library (up to k = 64 one warp per row, its list in registers; above,
+    buffered lists folded by warps of a block, ``topk_common.cuh``)."""
     if vals.shape != ids.shape or vals.dim() != 3:
         raise ValueError(f"topk_merge: bad shapes {tuple(vals.shape)} {tuple(ids.shape)}")
     if vals.device.type == "cpu" and ids.device.type == "cpu":
@@ -256,8 +259,10 @@ def topk_merge(vals: torch.Tensor, ids: torch.Tensor):
     check_k(k, "topk_merge")
     ov = torch.empty((s_rows, k), dtype=torch.float32, device=vals.device)
     oi = torch.empty((s_rows, k), dtype=torch.int32, device=vals.device)
+    mv, mi = scratch(merge_entries(s_rows, k), vals.device)
     stream = torch.cuda.current_stream(vals.device).cuda_stream
-    rc = _lib()[1](vals.data_ptr(), ids.data_ptr(), ov.data_ptr(), oi.data_ptr(), s_rows, lists, k, stream)
+    rc = _lib()[1](vals.data_ptr(), ids.data_ptr(), ov.data_ptr(), oi.data_ptr(), _ptr(mv), _ptr(mi), s_rows, lists,
+                   k, stream)
     if rc != 0:
         raise RuntimeError(f"topk_merge kernel launch failed: cudaError {rc}")
     topk_merge.launches += 1

@@ -12,8 +12,8 @@ Counterpart of the JAX package's ``repack.py``, on the same on-disk index:
     a given order and permutes every per-row artifact with them (graph rows
     and values, codes, embeddings, entries, medoid, ids in the ``perm``
     format, token caches). Deriving a locality order from the geometry
-    (``order=None``) is not ported: it rests on the k-means that ROADMAP.md
-    lists under "Not to port", and it measured as a net loss.
+    (``order=None``) is not ported yet (ROADMAP.md §A #7): it rests on the
+    JAX package's k-means and locality order, and it measured as a net loss.
   * :func:`unrelabel_index` puts a relabeled index back in the order its
     stored id permutation gives.
 
@@ -125,7 +125,7 @@ def relabel_index(prefix: str, n_cells: int = 0, order: "np.ndarray | None" = No
     is not ported and raises."""
     if order is None:
         raise not_ported("relabel_index(order=None), the locality order from _kmeans_full",
-                         "ROADMAP.md, Not to port: _kmeans_full and the locality relabel")
+                         "ROADMAP.md §A #7")
     path = backend = None
     for b in ("diskann", "hnsw"):
         cand = f"{prefix}.{b}.npz"

@@ -44,7 +44,7 @@ def _flat_inputs(seed, n, d, b, metric):
 
 @pytest.mark.parametrize("b,n", [(1, 5000), (64, 4999), (65, 5000), (130, 4999)])
 @pytest.mark.parametrize("d", [33, 384, 400, 784])
-@pytest.mark.parametrize("k", [1, 3, 5, 16, 64, 65, 128, 256, 257, 512, 1000])
+@pytest.mark.parametrize("k", [1, 3, 5, 16, 64, 65, 96, 128, 200, 256, 257, 512, 1000])
 @pytest.mark.parametrize("metric", ["l2", "mips", "cosine"])
 def test_flat_topk_matches_plain(cuda, metric, k, d, b, n):
     e, q = _flat_inputs(3, n, d, b, metric)
@@ -69,14 +69,14 @@ def test_flat_topk_fills_past_valid_rows(cuda):
 
 # n_real = N is the build's own call: the last tile (rows 2944 .. 3071) runs
 # past the corpus and TMA fills it with zeros; n_real = 2900 masks real rows.
-# k = 64 is the diskann build's list, 128 the HNSW build's (shared-memory
-# lists), 512 the HNSW build's at M = 64, efConstruction = 512 (lists in
-# device memory)
+# k = 64 is the diskann build's list (registers), 128 the HNSW build's
+# (buffered), 512 the HNSW build's at M = 64, efConstruction = 512 (buffered,
+# folded through memory)
 @pytest.mark.parametrize("n_real", [2900, 3000])
 @pytest.mark.parametrize("grid", ["split", "unsplit"])
 @pytest.mark.parametrize("q_count", [1, 129, 1000])
 @pytest.mark.parametrize("d", [384, 385, 784])
-@pytest.mark.parametrize("k", [64, 65, 128, 256, 257, 512, 1000])
+@pytest.mark.parametrize("k", [64, 65, 96, 128, 200, 256, 257, 512, 1000])
 def test_knn_panel_matches_plain(cuda, monkeypatch, k, d, q_count, grid, n_real):
     n, q_start = 3000, 100
     emb = torch.from_numpy(np.random.default_rng(7).standard_normal((n, d)).astype(np.float32))
@@ -109,7 +109,7 @@ def _assert_lower_twin_first(ids, dists, half, own=None):
                 assert row_i[p] > row_i[p - 1]
 
 
-@pytest.mark.parametrize("k", [8, 128, 512])
+@pytest.mark.parametrize("k", [8, 96, 128, 200, 257, 512])
 @pytest.mark.parametrize("metric", ["l2", "mips"])
 def test_flat_topk_ties_go_to_the_lower_id(cuda, metric, k):
     half, d = 2000, 384
@@ -122,7 +122,7 @@ def test_flat_topk_ties_go_to_the_lower_id(cuda, metric, k):
     assert _overlap(ids.cpu().numpy(), pi.numpy()) >= 0.95
 
 
-@pytest.mark.parametrize("k", [16, 128, 512])
+@pytest.mark.parametrize("k", [16, 96, 128, 200, 257, 512])
 def test_knn_panel_ties_go_to_the_lower_id(cuda, k):
     half = 1500
     emb = torch.from_numpy(np.random.default_rng(9).standard_normal((half, 384)).astype(np.float32))
@@ -134,7 +134,7 @@ def test_knn_panel_ties_go_to_the_lower_id(cuda, k):
     assert (ids[:half, 0] == np.arange(half) + half).all() and (ids[half:, 0] == np.arange(half)).all()
 
 
-@pytest.mark.parametrize("k_flat,k_knn", [(3, 64), (128, 128), (512, 512)])
+@pytest.mark.parametrize("k_flat,k_knn", [(3, 64), (128, 128), (200, 96), (257, 200), (512, 512)])
 def test_kernels_are_deterministic(cuda, k_flat, k_knn):
     e, q = _flat_inputs(6, 20000, 384, 64, "cosine")
     ebf = e.to(torch.bfloat16).to(cuda)
@@ -202,7 +202,7 @@ def test_knn_panel_ext_matches_plain(cuda, monkeypatch, layout, k, grid):
     np.testing.assert_allclose(dists.cpu().numpy(), pd.cpu().numpy(), rtol=1e-4, atol=1e-2)
 
 
-@pytest.mark.parametrize("k", [3, 16, 64, 65, 256, 257, 512])
+@pytest.mark.parametrize("k", [3, 16, 64, 65, 128, 256, 257, 512, 513])
 def test_running_state_merge_matches_plain(cuda, k):
     """topk_merge over [S, 2, k] (the sharded k-NN's running state and a new
     shard's lists) against its plain version: identical ids and values,
@@ -222,6 +222,81 @@ def test_running_state_merge_matches_plain(cuda, k):
     assert torch.equal(got_i.cpu(), want_i) and torch.equal(got_d.cpu(), want_d)
     again = kp.topk_merge(v, i)
     assert torch.equal(again[0], got_i) and torch.equal(again[1], got_d)
+
+
+# Above k = 64 every row buffers the survivors of its bar and folds the
+# buffer into a sorted list of k2 entries (topk_common.cuh BufRows); the
+# merges fold the splits' lists the same way.
+WIDE_K = [65, 96, 128, 200, 256, 257, 512]
+
+
+def _ladder(n, d=384):
+    """Integer rows (exact in bf16) whose entries sum to the row index and
+    never fall along the rows: for positive query weights each row scores
+    above every row before it, and the l2 distance from a later row falls
+    row by row up to it, so every column beats the bar. Distances are exact
+    integers in f32."""
+    i, j = np.arange(n)[:, None], np.arange(d)[None, :]
+    return torch.from_numpy(np.clip(i - 255 * j, 0, 255).astype(np.float32))
+
+
+@pytest.mark.parametrize("grid", ["split", "unsplit"])
+@pytest.mark.parametrize("k", WIDE_K)
+def test_every_column_beats_the_bar(cuda, monkeypatch, k, grid):
+    """Both kernels where every column beats every column before it for the
+    rows taken: each tile fills the buffers and forces folds; ids and
+    distances equal the plain versions' exactly."""
+    if grid == "unsplit":
+        monkeypatch.setattr(kp, "multiprocessors", lambda dev: 1)
+        monkeypatch.setattr("leann_torch.ops.flat_topk.multiprocessors", lambda dev: 1)
+    ebf, norms = panel_inputs(_ladder(6000).to(cuda))
+    args = (ebf, norms, k, 6000 - 300, 300, 6000)
+    got, want = knn_panel(*args), knn_panel_plain(*args)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    e = _ladder(20000).to(torch.bfloat16).to(cuda)
+    q = torch.ones((70, 384), device=cuda)
+    q[:, 0] = torch.arange(70, device=cuda, dtype=torch.float32) % 4 + 1
+    got, want = flat_topk(q, e, None, 20000, k, "mips"), flat_search(e, q, 20000, k, "mips")
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+@pytest.mark.parametrize("k", [65, 128, 257, 512])
+def test_fewer_columns_than_k_keep_empty_slots(cuda, k):
+    """n_cols < k: the lists keep empty slots (-1, 3.4e38) after the
+    candidates, as the plain versions do."""
+    emb = torch.from_numpy(np.random.default_rng(13).standard_normal((400, 384)).astype(np.float32))
+    ebf, norms = panel_inputs(emb.to(cuda))
+    ids, dists = knn_panel(ebf, norms, k, q_start=0, q_count=200, n_real=60)
+    pi, pd = knn_panel_plain(ebf, norms, k, 0, 200, 60)
+    # every candidate is in every list: the same sets, in distance order
+    assert torch.equal(torch.sort(ids, 1).values.cpu(), torch.sort(pi, 1).values.cpu())
+    np.testing.assert_allclose(dists.cpu().numpy(), pd.cpu().numpy(), rtol=1e-4, atol=1e-2)
+    # rows 0 .. 59 are real columns and skip themselves: 59 candidates; the others 60
+    assert (ids[:60, :59] >= 0).all() and (ids[:60, 59:] == -1).all()
+    assert (ids[60:, :60] >= 0).all() and (ids[60:, 60:] == -1).all()
+    e, q = _flat_inputs(14, 400, 384, 9, "l2")
+    ids, dists = flat_topk(q.to(cuda), e.to(torch.bfloat16).to(cuda), e.square().sum(1).to(cuda), 50, k, "l2")
+    assert (ids[:, :50] >= 0).all() and (ids[:, 50:] == -1).all() and (dists[:, 50:] == 3.4e38).all()
+
+
+@pytest.mark.parametrize("k", [65, 128, 513, 3000])
+@pytest.mark.parametrize("lists", [3, 40, 132])
+def test_merge_of_many_lists_matches_plain(cuda, k, lists):
+    """topk_merge over as many lists as the flat search's column splits
+    (several warps a row, folded into each other), identical to the plain
+    version; k = 3000 keeps the warps' lists in device memory."""
+    rng = np.random.default_rng(k + lists)
+    s = 40 if k > 600 else 300
+    vals = np.sort(rng.standard_normal((s, lists, k)).astype(np.float32), axis=2)
+    ids = rng.permutation(s * lists * k).reshape(s, lists, k).astype(np.int32)
+    vals[: s // 3, :, k // 2 :] = 3.4e38
+    ids[: s // 3, :, k // 2 :] = -1
+    order = np.lexsort((ids, vals), axis=2)
+    vals, ids = np.take_along_axis(vals, order, 2), np.take_along_axis(ids, order, 2)
+    v, i = torch.from_numpy(vals).to(cuda), torch.from_numpy(ids).to(cuda)
+    got_i, got_d = kp.topk_merge(v, i)
+    want_i, want_d = kp.topk_merge_plain(v.cpu(), i.cpu())
+    assert torch.equal(got_i.cpu(), want_i) and torch.equal(got_d.cpu(), want_d)
 
 
 def test_update_index_on_the_card_matches_the_cpu(cuda, tmp_path):

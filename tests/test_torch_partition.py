@@ -285,13 +285,13 @@ def test_repack_relabel_unrelabel_match_jax(tmp_path, corpus, backend, capsys):
 
 
 def test_relabel_refusals(partitioned, tmp_path):
-    """relabel_index(order=None) is not ported (ROADMAP.md, Not to port), and
+    """relabel_index(order=None) is not ported (ROADMAP.md §A #7), and
     a multi-partition index refuses any relabel, as in the JAX package."""
     from leann_tpu import repack as jax_repack
 
     from leann_torch import repack
 
-    with pytest.raises(NotImplementedError, match="ROADMAP.md, Not to port"):
+    with pytest.raises(NotImplementedError, match="ROADMAP.md §A #7"):
         repack.relabel_index(partitioned["torch"])
     for mod, prefix in ((repack, partitioned["torch"]), (jax_repack, partitioned["jax"])):
         with pytest.raises(ValueError, match="multi-partition"):
