@@ -29,7 +29,8 @@ final line):
      at some (phase 2: cosine at k = 3, 5, 128, 256, 512, l2 at k = 3; phase 3:
      the full-corpus launches at k = 64, 128 and 512) as device time: the
      summed time of the CUDA kernels one call launches, from torch.profiler
-     over 10 calls (3 above k = 256) after 2 untimed ones (`kernel_ms`,
+     over 10 calls (3 above k = 256, and 3 of each call at the instances no
+     path launches: B1 k = 256, B2 k = 512) after 2 untimed ones (`kernel_ms`,
      `library_ms`; `kernel_parts_ms` by kernel, the tile kernel against the
      merge); each
      kernel's records must number a multiple of the calls, else the profile
@@ -272,7 +273,31 @@ final line):
      and masks of their tokenizer.json (these check that the card's Python
      runs the converters as the CPU tests do; the references are the CPU
      tests').
- 16. the kernels line: per kernel, path and k its launches on that path
+ 16. the approximate k-NN past the card and the locality relabel (plain
+     torch: the JAX package computes them outside Pallas). (a) spill
+     (ops/graph.py spill_knn_streamed: k-means cells, exact k-NN inside
+     windows of the cell order, lists merged over 2 probes) over phase 6's
+     1,048,576 rows at k = 64, in 4 chunks of 2^19 expanded rows, its
+     candidate recall@64 against phase 6's one-pass exact lists. (b) phase
+     4's embeddings (kept by phase 8) through build_index_from_embeddings
+     with diskann at phase 4's settings and the k-NN cap lowered to 50,000
+     (as phase 7 lowers it), under LEANN_KNN_MODE=spill, then into the same
+     prefix under =descent (NN-descent from the cluster bootstrap; the
+     passages and token store stay): no k-NN kernel launched, candidate
+     recall@64 against phase 4's B2 lists, step seconds, descent's rounds
+     and improved fraction per round, recall@3 of phase 4's queries against
+     its oracle (B1), >= 0.80 for descent, and whether the card's free
+     memory sent the prune to PQ-decoded rows or the token store to host
+     RAM. (c) the locality relabel (repack.relabel_index with no order:
+     k-means cells over the stored geometry, here PQ codes decoded) of a
+     copy of phase 4's index, and `repack <phase 11's index> --relabel
+     --device cuda` through the CLI's main (what `python -m leann_torch.cli`
+     runs; in this process, as phase 11 runs the CLI): bytes and edge
+     locality before and after, the 64 queries' ids of each index unchanged
+     (against phase 4's and phase 11's searches), unrelabel_index restoring
+     every array. Fails on any of these. One process on the card
+     throughout.
+ 17. the kernels line: per kernel, path and k its launches on that path
      (each path's counts set to 0 just before it and read just after), its
      device time and call time, its plain version's and a library call's
      time at that path's shapes, and its bound on the card.
@@ -518,6 +543,9 @@ def overlap(a, b) -> float:
 # cut to make room for phases 12 and 13 (PERF.md §4)
 TIMED_FLAT_K = (3, 5, 128, 256, 512)
 TIMED_PANEL_K = (64, 128, 512)
+# instances no path of the smoke launches, timed over fewer calls to make
+# room for phase 16 (PERF.md §4): B1 at k = 256, B2 at k = 512
+UNLAUNCHED_FLAT_K, UNLAUNCHED_PANEL_K, UNLAUNCHED_REPS = (256,), (512,), 3
 # the list lengths the order checks of phases 2 and 3 drive (k > 64: BufRows)
 ORDER_CHECK_K = (128, 512)
 
@@ -631,8 +659,9 @@ def phase_flat_topk(torch, dev, rng):
                     lib = lambda: torch.topk(2.0 * (qb @ e.T).float() - en, k)  # noqa: E731
                 else:
                     lib = lambda: torch.topk(qb @ e.T, k)  # noqa: E731
-                (k_ms, k_parts, k_att), (l_ms, _, l_att) = device_ms_many(torch, [(kernel, 10), (lib, 10)])
-                c_ms = cuda_ms(torch, kernel)
+                reps = UNLAUNCHED_REPS if k in UNLAUNCHED_FLAT_K else 10
+                (k_ms, k_parts, k_att), (l_ms, _, l_att) = device_ms_many(torch, [(kernel, reps), (lib, reps)])
+                c_ms = cuda_ms(torch, kernel, reps=reps)
                 p_ms = cuda_ms(torch, lambda: flat_search(e, qm, n, k, metric, en=en), reps=3)
                 n_bytes = n * d * 2 + b * d * 4 + (n * 4 if metric == "l2" else 0) + b * k * 8
                 b_ms, b_by = bound(n_bytes, 2.0 * b * n * d)
@@ -693,7 +722,7 @@ def phase_knn_panel(torch, dev, rng):
                     torch.topk(2.0 * (qq @ ebf[:n_real].T).float() - norms[:n_real], k)
 
             (k_ms, k_parts, k_att), (l_ms, _, l_att) = device_ms_many(
-                torch, [(kernel, 3 if k > 256 else 10), (lib, 10)])
+                torch, [(kernel, 3 if k > 256 else 10), (lib, UNLAUNCHED_REPS if k in UNLAUNCHED_PANEL_K else 10)])
             c_ms = cuda_ms(torch, kernel, reps=3 if q_count > 4096 else 10)
             p_ms = cuda_ms(torch, plain, reps=1)
             n_bytes = n * d * 2 + n * 4 + q_count * k * 8
@@ -953,8 +982,10 @@ def _reset(counters) -> None:
 
 
 def phase_beyond_card_knn(torch, dev, seed: int, n: int = 1 << 20, rows_per_shard: int = 1 << 18,
-                          qchunk: int = 1 << 17, n_sampled: int = 1024):
-    """Phase 6 -> (kernel rows by (kernel, path), launches by path)."""
+                          qchunk: int = 1 << 17, n_sampled: int = 1024, keep: "dict | None" = None):
+    """Phase 6 -> (kernel rows by (kernel, path), launches by path). ``keep``
+    receives the rows and their one-pass exact ids (phase 16 scores spill
+    against them)."""
     from leann_torch.ops import graph
     from leann_torch.ops import knn_panel as kp
 
@@ -1067,6 +1098,8 @@ def phase_beyond_card_knn(torch, dev, seed: int, n: int = 1 << 20, rows_per_shar
         want = ("knn_panel",) if path.endswith("one_pass") else ("knn_panel_ext", "topk_merge")
         if any(cnt[w] < 1 for w in want):
             fail(f"a kernel of {path} was not launched: {cnt}")
+    if keep is not None:
+        keep.update(emb=emb, ids=i1)
     return kr, launches
 
 
@@ -1385,6 +1418,7 @@ def phase_lifecycle(torch, dev, workdir: str, main: dict):
     t = time.time()
     emb = compute_embeddings(chunks, "hash-minilm", is_build=True, batch_size=4096, max_length=128, device=dev)
     embed_s = time.time() - t
+    main["emb"] = emb  # phase 16 builds from them again
     ids = [str(i) for i in range(n)]
     knn_seen = {}
     real_exact_knn = graph.exact_knn
@@ -2163,8 +2197,10 @@ def _mcp_session(cwd: str, env: dict, requests: list, limit_s: float = 600) -> l
     return out
 
 
-def phase_surface(torch, dev, workdir: str):
-    """Phase 11 -> (kernel rows by (kernel, path), launches by path)."""
+def phase_surface(torch, dev, workdir: str, keep: "dict | None" = None):
+    """Phase 11 -> (kernel rows by (kernel, path), launches by path).
+    ``keep`` receives the CLI index's prefix and the 64 queries (phase 16
+    relabels the index)."""
     from leann_torch import LeannSearcher, api
     from leann_torch.ops import graph
     from leann_torch.ops import knn_panel as kp
@@ -2329,6 +2365,8 @@ def phase_surface(torch, dev, workdir: str):
     del ebf_k, norms
     torch.cuda.empty_cache()
 
+    if keep is not None:  # with its results at the CLI's search defaults
+        keep.update(prefix=index_prefix("folder"), queries=queries, ids=[[r.id for r in row] for row in got])
     hnsw_builder, oracle_builder = seen["builders"][:2]
     row = {"phase": "surface", "folder": folder, "chunks": len(passages), "load_chunk_s":
            seen["build_start"][0] - t0, "cli_build_s": cli_build_s, "build_s": dict(hnsw_builder.phase_seconds),
@@ -3595,6 +3633,231 @@ def phase_tokenizer_files(torch, dev, workdir: str, chunks):
     return a["kr"], launches
 
 
+# phase 16: the approximate k-NN past the card and the locality relabel
+APPROX_FORCED_MAX_N = 50_000  # the k-NN cap forced under phase 4's 100K rows, as phase 7 forces it
+SPILL_CHUNK_ROWS = 1 << 19  # 2 probes of 1,048,576 rows: 4 chunks
+
+
+def _index_arrays(prefix: str) -> dict:
+    """Every array of an index's .npz / .npy files (caches included) and its ids."""
+    d, base = os.path.split(prefix)
+    out = {}
+    for f in sorted(os.listdir(d)):
+        if f.startswith(base + ".") and f.endswith((".npz", ".npy")):
+            z = np.load(os.path.join(d, f))
+            out.update({f"{f}:{k}": z[k] for k in z.files} if f.endswith(".npz") else {f: z})
+    with open(prefix + ".ids.json") as f:
+        out["ids"] = f.read()
+    return out
+
+
+def _same_arrays(a: dict, b: dict) -> bool:
+    return a.keys() == b.keys() and all(
+        a[k] == b[k] if k == "ids" else (a[k].dtype == b[k].dtype and np.array_equal(a[k], b[k])) for k in a)
+
+
+def _backend_npz(prefix: str) -> str:
+    return f"{prefix}.diskann.npz" if os.path.exists(prefix + ".diskann.npz") else f"{prefix}.hnsw.npz"
+
+
+def _relabel_check(torch, prefix: str, ids, queries, kw: dict, relabel) -> dict:
+    """One relabel of the index at ``prefix``, checked: the v2 format first
+    (so the arrays compared are the relabel's alone), every array, the
+    bytes and the edge locality; ``relabel()`` timed; the queries' ids
+    after it (the searcher maps rows to ids) against ``ids``, an earlier
+    search's, the rows moved, bytes and locality after; then
+    unrelabel_index, and the arrays and bytes it restored."""
+    from leann_torch import LeannSearcher
+    from leann_torch.ops.relabel import edge_locality
+    from leann_torch.repack import repack_index, unrelabel_index
+    from leann_torch.storage import index_all_in_bytes, load_ids, unpack_neighbors
+
+    t = time.time()
+    repack_index(prefix)
+    arrays, n_bytes = _index_arrays(prefix), index_all_in_bytes(prefix)
+    locality = edge_locality(unpack_neighbors(np.load(_backend_npz(prefix))))
+    steps = {"before": time.time() - t}
+    torch.cuda.synchronize()
+    t = time.time()
+    out = relabel()
+    torch.cuda.synchronize()
+    relabel_s = time.time() - t
+    t = time.time()
+    order = np.array(load_ids(prefix), np.int64)
+    got = [[r.id for r in row] for row in LeannSearcher(prefix).search(queries, **kw)]
+    steps["search"] = time.time() - t
+    row = {"relabel_s": relabel_s, "n": int(order.shape[0]),
+           "moved_rows": int((order != np.arange(order.shape[0])).sum()),
+           "bytes": [n_bytes, index_all_in_bytes(prefix)],
+           "edge_locality_64k": [locality, edge_locality(unpack_neighbors(np.load(_backend_npz(prefix))))],
+           "same_results": got == ids, "differing_queries": sum(a != b for a, b in zip(got, ids))}
+    t = time.time()
+    unrelabel_index(prefix)
+    row["unrelabel_s"] = time.time() - t
+    row.update(arrays_restored=_same_arrays(_index_arrays(prefix), arrays),
+               bytes_restored=index_all_in_bytes(prefix) == n_bytes, checks_s={**steps, "after": time.time() - t})
+    if isinstance(out, str):
+        row["cli_stdout"] = out.strip()[-200:]
+    return row
+
+
+def _spill_1m(torch, dev, spill_data: dict, counters) -> dict:
+    """Phase 16 (a): spill over phase 6's 1,048,576 rows at 2 probes, in
+    chunks of 2^19 expanded rows, scored against phase 6's exact lists."""
+    from leann_torch.ops import graph
+
+    emb, exact = spill_data.pop("emb"), spill_data.pop("ids")
+    k = exact.shape[1]
+    _reset(counters)
+    torch.cuda.synchronize()
+    t = time.time()
+    ids, _ = graph.spill_knn_streamed(emb, k, chunk_rows=SPILL_CHUNK_ROWS, device=dev)
+    torch.cuda.synchronize()
+    return {"n": int(emb.shape[0]), "k": k, "n_probe": 2, "chunk_rows": SPILL_CHUNK_ROWS,
+            "chunks": -(-2 * emb.shape[0] // SPILL_CHUNK_ROWS), "s": time.time() - t,
+            "candidate_recall_at_64": overlap(torch.from_numpy(exact).to(dev), torch.from_numpy(ids).to(dev)),
+            "self_listed": int((ids == np.arange(emb.shape[0])[:, None]).sum()), "kernel_launches": _counts(counters)}
+
+
+def _approx_build(torch, dev, workdir: str, main: dict, counters, mode: str) -> dict:
+    """Phase 16 (b), one mode: diskann over phase 4's embeddings through
+    build_index_from_embeddings past a lowered card cap under
+    LEANN_KNN_MODE=``mode``, into one prefix for both modes (each build
+    keeps the passages and token store it finds there): its candidates
+    against phase 4's B2 lists, its step seconds, descent's rounds and
+    improved fraction per round, recall@3 of phase 4's queries against its
+    oracle, and the two choices the card's free memory makes on this path
+    (the prune against PQ-decoded rows, the token store in host RAM)."""
+    from leann_torch import LeannBuilder, LeannSearcher
+    from leann_torch.ops import graph
+
+    name = {"spill": "spill_knn_streamed", "descent": "nn_descent"}[mode]
+    real = {n: getattr(graph, n) for n in (name, "_nn_descent_iter", "prune_ebf_max_bytes")}
+    real_cap = graph.exact_knn_max_n
+    saved_mode = os.environ.get("LEANN_KNN_MODE")
+    seen = {"rounds": [], "prune_cap": []}
+
+    def recording(*a, **kw):  # the pass's lists and seconds; launches nothing itself
+        torch.cuda.synchronize()
+        t0 = time.time()
+        out = real[name](*a, **kw)
+        torch.cuda.synchronize()
+        seen["knn_s"], seen["ids"] = time.time() - t0, out[0]
+        return out
+
+    def one_round(*a, **kw):  # one call a round with the state on the card: its improved fraction
+        out = real["_nn_descent_iter"](*a, **kw)
+        seen["rounds"].append(out[2] / (a[5] * out[0].shape[1]))  # changed / (n_real k)
+        return out
+
+    def prune_cap(device):
+        seen["prune_cap"].append(real["prune_ebf_max_bytes"](device))
+        return seen["prune_cap"][-1]
+
+    graph.exact_knn_max_n = lambda d, k, device: APPROX_FORCED_MAX_N
+    setattr(graph, name, recording)
+    graph._nn_descent_iter, graph.prune_ebf_max_bytes = one_round, prune_cap
+    os.environ["LEANN_KNN_MODE"] = mode
+    try:
+        _reset(counters)
+        prefix = os.path.join(workdir, "approx.leann")
+        b = LeannBuilder(backend_name="diskann", embedding_model="hash-minilm", max_length=128, graph_degree=32,
+                         device=dev)
+        t = time.time()
+        b.build_index_from_embeddings(prefix, [str(i) for i in range(len(main["chunks"]))], main["emb"].copy(),
+                                      texts=main["chunks"])
+        build_wall = time.time() - t
+        launches = _counts(counters)
+    finally:
+        graph.exact_knn_max_n = real_cap
+        for n, f in real.items():
+            setattr(graph, n, f)
+        if saved_mode is None:
+            os.environ.pop("LEANN_KNN_MODE", None)
+        else:
+            os.environ["LEANN_KNN_MODE"] = saved_mode
+    searcher = LeannSearcher(prefix, device=dev)
+    got = searcher.search(main["queries"], **main["kw"])
+    emb_bytes = main["emb"].shape[0] * main["emb"].shape[1] * 2
+    row = {"build_wall_s": build_wall, "build_s": dict(b.phase_seconds), "knn_call_s": seen["knn_s"],
+           "candidate_recall_at_64": overlap(torch.from_numpy(main["knn_ids"]).to(dev),
+                                             torch.from_numpy(np.asarray(seen["ids"])).to(dev)),
+           "recall_at_3": _recall(got, main["truth"]), "phase4_recall_at_3": main["recall"],
+           "prune_pq_mode": any(emb_bytes > c for c in seen["prune_cap"]),
+           "tokens_on_host": searcher.backend.tokens_host is not None, "kernel_launches": launches}
+    if mode == "descent":
+        row.update(rounds=len(seen["rounds"]), improved_fraction_per_round=seen["rounds"])
+    return row
+
+
+def phase_approx_knn(torch, dev, workdir: str, main: dict, spill_data: dict):
+    """Phase 16 -> its row: (a) :func:`_spill_1m`, (b) :func:`_approx_build`
+    under spill, then under descent, (c) the locality relabel, each undone
+    by unrelabel_index (:func:`_relabel_check`): of a copy of phase 4's
+    index through relabel_index with no order, and of phase 11's CLI index
+    through the CLI's ``repack --relabel --device cuda`` (its ``main``, what
+    ``python -m leann_torch.cli`` runs, in this process as phase 11 runs
+    the CLI). One process on the card throughout."""
+    from leann_torch.ops import knn_panel as kp
+    from leann_torch.ops.flat_topk import flat_topk
+    from leann_torch.repack import relabel_index
+
+    counters = (flat_topk, kp.knn_panel, kp.knn_panel_ext, kp.topk_merge)
+    t_phase = time.time()
+    marks = {}
+
+    def mark(name):  # the phase's seconds at the end of each part
+        marks[name] = time.time() - t_phase
+
+    spill = _spill_1m(torch, dev, spill_data, counters)
+    mark("spill_1m")
+    # phase 4's passage store and token cache under the builds' prefix: the
+    # builder finds them up to date (the same chunks, ids and model) and
+    # keeps them, as the second build keeps the first's
+    src_dir, base = os.path.split(main["prefix"])
+    for f in os.listdir(src_dir):
+        if f.startswith((base + ".passages.", base + ".tokens.cache")):
+            shutil.copy(os.path.join(src_dir, f), os.path.join(workdir, "approx.leann" + f[len(base):]))
+    builds = {}
+    for mode in ("spill", "descent"):
+        builds[mode] = _approx_build(torch, dev, workdir, main, counters, mode)
+        mark(f"build_{mode}")
+    surface = main["surface"]
+    copy = _copy_index(main["prefix"], os.path.join(workdir, "relabel_copy"))
+    # against the ids phase 4's and phase 11's searches of the same indexes gave
+    relabels = {"diskann_copy": _relabel_check(torch, copy, [[r.id for r in row] for row in main["got"]],
+                                               main["queries"], main["kw"], lambda: relabel_index(copy, device=dev))}
+    mark("relabel_copy")
+
+    def cli_relabel():
+        rc, out = _cli(["repack", surface["prefix"], "--relabel", "--device", "cuda"])
+        if rc != 0:
+            fail(f"repack --relabel of phase 11's index exited {rc}: {out[-1500:]}")
+        return out
+
+    relabels["cli_hnsw"] = _relabel_check(torch, surface["prefix"], surface["ids"], surface["queries"],
+                                          CLI_SEARCH_KW, cli_relabel)
+    mark("relabel_cli")
+
+    row = {"phase": "approx_knn", "spill_1m": spill, "builds_100k": builds,
+           "forced": {"exact_knn_max_n": APPROX_FORCED_MAX_N}, "relabel": relabels,
+           "phase_s": time.time() - t_phase, "marks_s": marks,
+           "reduced": "1,048,576 rows (spill) and 100,000 (the builds) stand in for the 10M+ regime the modes are "
+                      "for; the card cap is lowered to reach them"}
+    emit(row)
+    if spill["self_listed"] or spill["chunks"] < 2:
+        fail(f"spill over 1M rows: {spill}")
+    for mode, bd in builds.items():
+        if bd["kernel_launches"]["knn_panel"] or bd["kernel_launches"]["knn_panel_ext"]:
+            fail(f"the {mode} build ran the exact k-NN: {bd['kernel_launches']}")
+    if builds["descent"]["recall_at_3"] < 0.80 or builds["descent"]["rounds"] < 1:
+        fail(f"the descent build's recall@3 {builds['descent']['recall_at_3']:.4f} is below the 0.80 sanity floor")
+    for name, r in relabels.items():
+        if not (r["same_results"] and r["arrays_restored"] and r["bytes_restored"] and r["moved_rows"] > 0):
+            fail(f"the relabel of {name}: {r}")
+    return row
+
+
 def _timed(fn):
     """-> (``fn()``, its wall seconds on the host's clock)."""
     t = time.time()
@@ -3645,18 +3908,20 @@ def main() -> int:
     with tempfile.TemporaryDirectory(dir=REPO / "build") as workdir:
         launches["diskann"], main_state = phase_main_path(torch, workdir)
         launches["hnsw"] = phase_hnsw_path(torch, workdir, main_state)
-        more = [phase_beyond_card_knn(torch, dev, seed=6),
+        spill_data, main_state["surface"] = {}, {}
+        more = [phase_beyond_card_knn(torch, dev, seed=6, keep=spill_data),
                 phase_beyond_card_path(torch, dev, workdir, main_state, seed=7),
                 phase_lifecycle(torch, dev, workdir, main_state)]
         *ckpt_rows, ckpt_state = phase_checkpoint(torch, dev, workdir, main_state["chunks"], main_state["queries"])
         more.append(tuple(ckpt_rows))
         phase_repair(torch, main_state)
         more.append(phase_train(torch, dev, workdir, main_state, ckpt_state))
-        more.append(phase_surface(torch, dev, workdir))
+        more.append(phase_surface(torch, dev, workdir, keep=main_state["surface"]))
         more.append(phase_multilingual(torch, dev, workdir, main_state["chunks"], main_state["queries"]))
         more.append(phase_apps(torch, dev, workdir, os.path.join(workdir, "surface", "docs"), main_state["chunks"]))
         more.append(phase_parallel(torch, dev, workdir, main_state))
         more.append(phase_tokenizer_files(torch, dev, workdir, main_state["chunks"]))
+        phase_approx_knn(torch, dev, workdir, main_state, spill_data)
     for kr, more_launches in more:
         launches.update(more_launches)
         rows += [(name, path, r, b1 if name == "flat_topk" else b2) for (name, path), r in kr.items()]

@@ -14,7 +14,7 @@ options, defaults and index layout. Subcommand parity with the reference CLI
 Every subcommand takes ``--device`` (default ``cuda``), checked before any
 work: the builder, searcher and chat run there, and without CUDA a command
 exits non-zero unless it is given ``--device cpu``. ``repack --relabel``
-refuses: the locality relabel is not ported.
+runs the locality relabel's k-means there too.
 
 Index layout parity (cli.py:48-67): ``.leann/indexes/<name>/documents.leann``
 inside the current project, the JAX package's layout, so either package's
@@ -186,9 +186,8 @@ def build_parser() -> argparse.ArgumentParser:
     rp = sub.add_parser("repack", help="repack an index into the compact v2 storage format", parents=[dev])
     rp.add_argument("index_name", help="index name or a literal path prefix ending in .leann")
     rp.add_argument("--relabel", action="store_true",
-                    help="locality-relabel node ids first (shrinks the packed "
-                         "graph ~40%% and improves HBM gather locality; "
-                         "single-partition indexes only)")
+                    help="locality-relabel node ids after repacking (shrinks the packed graph where "
+                         "neighbors cluster; single-partition indexes only; k-means on --device)")
     rp.add_argument("--cells", type=int, default=0,
                     help="relabel cell count (0 = auto)")
     return p
@@ -327,8 +326,8 @@ def cmd_repack(args) -> int:
         from .repack import relabel_index
 
         try:
-            rep2 = relabel_index(prefix, n_cells=args.cells)
-        except NotImplementedError as e:
+            rep2 = relabel_index(prefix, n_cells=args.cells, device=args.device)
+        except ValueError as e:  # a multi-partition index, or one without geometry
             print(f"error: {e}", file=sys.stderr)
             return 1
         rep = {"before_bytes": rep["before_bytes"],

@@ -512,6 +512,20 @@ _NOT_SPACING = frozenset([0x102B, 0x102C, 0x1038, *range(0x1062, 0x1065), *range
                           0xAA7D, 0x11720, 0x11721])
 _PREPEND = frozenset([*range(0x0600, 0x0606), 0x06DD, 0x070F, 0x0890, 0x0891, 0x08E2, 0x0D4E, 0x110BD, 0x110CD,
                       0x111C2, 0x111C3, 0x1193F, 0x11941, 0x11A3A, *range(0x11A84, 0x11A8A), 0x11D46, 0x11F02])
+# Indic_Conjunct_Break of DerivedCoreProperties.txt (Unicode 15.1): the six
+# viramas that link consonants (InCB=Linker) and the consonants of their
+# scripts, Devanagari, Bengali, Gujarati, Oriya, Telugu and Malayalam
+# (InCB=Consonant). InCB=Extend is Extend or ZWJ, less the linkers and U+200C.
+_INCB_LINKER = frozenset([0x094D, 0x09CD, 0x0ACD, 0x0B4D, 0x0C4D, 0x0D4D])
+_INCB_CONSONANT = frozenset([
+    *range(0x0915, 0x093A), *range(0x0958, 0x0960), *range(0x0978, 0x0980),
+    *range(0x0995, 0x09A9), *range(0x09AA, 0x09B1), 0x09B2, *range(0x09B6, 0x09BA), 0x09DC, 0x09DD, 0x09DF, 0x09F0,
+    0x09F1,
+    *range(0x0A95, 0x0AA9), *range(0x0AAA, 0x0AB1), 0x0AB2, 0x0AB3, *range(0x0AB5, 0x0ABA), 0x0AF9,
+    *range(0x0B15, 0x0B29), *range(0x0B2A, 0x0B31), 0x0B32, 0x0B33, *range(0x0B35, 0x0B3A), 0x0B5C, 0x0B5D, 0x0B5F,
+    0x0B71,
+    *range(0x0C15, 0x0C29), *range(0x0C2A, 0x0C3A), *range(0x0C58, 0x0C5B),
+    *range(0x0D15, 0x0D3B)])
 _EXT_PICT = ((0x00A9, 0x00A9), (0x00AE, 0x00AE), (0x203C, 0x203C), (0x2049, 0x2049), (0x2122, 0x2122),
              (0x2139, 0x2139), (0x2194, 0x2199), (0x21A9, 0x21AA), (0x231A, 0x231B), (0x2328, 0x2328),
              (0x2388, 0x2388), (0x23CF, 0x23CF), (0x23E9, 0x23F3), (0x23F8, 0x23FA), (0x24C2, 0x24C2),
@@ -565,13 +579,15 @@ def _gcb(ch: str) -> str:
 def graphemes(text: str) -> List[str]:
     """Extended grapheme clusters: CR LF, controls alone, Hangul syllable
     sequences, Extend / ZWJ / SpacingMark after their base, Prepend before
-    it, emoji ZWJ sequences, regional-indicator pairs."""
+    it, Indic conjuncts (GB9c: consonant, a virama among Extend / ZWJ /
+    viramas, consonant), emoji ZWJ sequences, regional-indicator pairs."""
     if text.isascii() and "\r\n" not in text:
         return list(text)
     out: List[str] = []
     start, prev = 0, None
     pict = pict_zwj = False
     ri = 0
+    conj = 0  # 1: an InCB consonant, then only InCB Extend; 2: a linker among them
     for i, ch in enumerate(text):
         a = _gcb(ch)
         if prev is not None:
@@ -588,6 +604,8 @@ def graphemes(text: str) -> List[str]:
                 join = True
             elif a in ("Extend", "ZWJ", "SpacingMark") or b == "Prepend":
                 join = True
+            elif conj == 2 and ord(ch) in _INCB_CONSONANT:
+                join = True
             elif pict_zwj and a == "ExtPict":
                 join = True
             elif b == "RI" and a == "RI":
@@ -600,6 +618,13 @@ def graphemes(text: str) -> List[str]:
         pict_zwj = a == "ZWJ" and pict
         pict = a == "ExtPict" or (a == "Extend" and pict)
         ri = ri + 1 if a == "RI" else 0
+        cp = ord(ch)
+        if cp in _INCB_CONSONANT:
+            conj = 1
+        elif conj and cp in _INCB_LINKER:
+            conj = 2
+        elif not (conj and a in ("Extend", "ZWJ") and ch != "\u200c"):
+            conj = 0
         prev = a
     if start < len(text):
         out.append(text[start:])

@@ -1,14 +1,18 @@
 """Graph construction: exact k-NN candidates, α-robust prune, reverse fill.
 
-Counterpart of the JAX package's ``ops/graph.py`` (its exact paths; the
-spill and NN-descent candidate passes are not ported):
+Counterpart of the JAX package's ``ops/graph.py``:
 
   1. candidate k-NN, exact, through the knn_panel CUDA kernel
      (``ops/knn_panel.py``): one card-resident pass (:func:`exact_knn`)
      while the bf16 matrix and the lists fit on the card, else
      :func:`exact_knn_sharded`, which keeps the matrix in host RAM and
      streams query chunks with their running top-k through one bf16 column
-     slab at a time; :func:`exact_knn_rows` is the sampled oracle;
+     slab at a time; :func:`exact_knn_rows` is the sampled oracle. Past
+     the card LEANN_KNN_MODE selects an approximate pass instead, in plain
+     torch as the JAX package computes it outside Pallas:
+     :func:`spill_knn_streamed` (k-means cells, exact k-NN inside windows
+     of the cell order, lists merged over 2 probes) or :func:`nn_descent`
+     (cluster bootstrap, then rounds of local joins);
   2. Vamana α-robust-prune of each node's candidates to degree R, keeping
      the ``keep_closest`` nearest unconditionally, against the bf16 matrix
      on the card or, when that outgrows the card, against candidates
@@ -34,6 +38,7 @@ import numpy as np
 import torch
 
 from ..device import matmul, resolve_device
+from ..embeddings import seeded
 from .distance import INF
 from .knn_panel import knn_panel, knn_panel_ext, topk_merge, upload_panel_inputs
 from .pq import _bucket_sample, decode_pq, encode_pq, train_pq
@@ -91,7 +96,8 @@ def env_override(name: str, default: "int | float") -> "int | float":
     """The environment variable ``name`` as ``default``'s type where it is
     set, else ``default``: the JAX package's overrides of the build's
     sizes (LEANN_EXACT_SHARD_BYTES, LEANN_EXACT_QCHUNK,
-    LEANN_EXACT_QCKPT_SECS, LEANN_PRUNE_EBF_MAX_BYTES), read when the build
+    LEANN_EXACT_QCKPT_SECS, LEANN_PRUNE_EBF_MAX_BYTES,
+    LEANN_SPILL_MEMMAP_BYTES, LEANN_DESCENT_HBM_BUDGET), read when the build
     runs, so a variable set before it takes effect."""
     value = os.environ.get(name)
     return default if value is None else type(default)(value)
@@ -419,6 +425,610 @@ def exact_knn_rows(
         out_i = np.take_along_axis(out_i, order, 1)[:, :k]
         out_d = np.take_along_axis(out_d, order, 1)[:, :k]
     return out_i, out_d
+
+
+# ---------------------------------------------------------------------------
+# Approximate k-NN past the card (LEANN_KNN_MODE=spill | descent): the JAX
+# package's cluster bootstrap, spill and NN-descent in plain torch (it
+# computes them outside Pallas: products, top-k, a scatter)
+# ---------------------------------------------------------------------------
+
+# spill scratch arrays larger than this live in memmaps in the checkpoint
+# directory (LEANN_SPILL_MEMMAP_BYTES overrides it)
+SPILL_MEMMAP_BYTES = 8 << 30
+# bound on a k-means step's bf16 one-hot block and its parts ([rows, K])
+KMEANS_ONEHOT_BYTES = 256 << 20
+# bound on a batch of window products ([W, window, window] f32 and top-k)
+WINDOW_BATCH_BYTES = 512 << 20
+
+
+def _device_budget(dev: torch.device) -> int:
+    """Bytes a pass may hold at once on ``dev``: a quarter of the card's
+    free memory; on the CPU a fixed 1 GiB."""
+    if dev.type == "cuda":
+        free, _ = torch.cuda.mem_get_info(dev)
+        return int(free // 4)
+    return 1 << 30
+
+
+def _big_empty(shape, dtype, scratch_dir: str, name: str):
+    """np.empty, or a disk-backed w+ memmap in ``scratch_dir`` when the
+    array is larger than ``SPILL_MEMMAP_BYTES``."""
+    nbytes = int(np.prod(shape)) * np.dtype(dtype).itemsize
+    if scratch_dir and nbytes > env_override("LEANN_SPILL_MEMMAP_BYTES", SPILL_MEMMAP_BYTES):
+        os.makedirs(scratch_dir, exist_ok=True)
+        path = os.path.join(scratch_dir, name)
+        logger.info("spill scratch -> %s (%.1f GB)", path, nbytes / 2**30)
+        return np.lib.format.open_memmap(path, mode="w+", dtype=dtype, shape=tuple(shape))
+    return np.empty(shape, dtype)
+
+
+def _pad_rows(x: np.ndarray, np_total: int, fill=0) -> np.ndarray:
+    if x.shape[0] == np_total:
+        return x
+    pad = np.full((np_total - x.shape[0],) + x.shape[1:], fill, x.dtype)
+    return np.concatenate([x, pad])
+
+
+def _kmeans_full(x: torch.Tensor, init: torch.Tensor, n_valid: int, n_iters: int,
+                 block: int = 4096) -> torch.Tensor:
+    """Lloyd's k-means: x f32 [S, D] (rows >= ``n_valid`` are padding),
+    init [K, D] -> f32 [K, D]. Assignments per ``block`` rows from bf16
+    products with f32 sums; padding rows go to a dropped segment K. The
+    cluster sums are one-hot products through ``device.matmul`` (x as three
+    bf16 parts), block by block: a float scatter-add would sum in atomic
+    order on the card and the centroids would change from run to run, and
+    a whole [S, K] one-hot is 8.6 GB at S = K = 65,536. Empty clusters keep
+    their centroid."""
+    s_total, d = x.shape
+    k = init.shape[0]
+    dev = x.device
+    c = init.float()
+    valid = torch.arange(s_total, device=dev) < n_valid
+    oh_rows = max(64, KMEANS_ONEHOT_BYTES // (8 * (k + 1)))
+    for _ in range(n_iters):
+        cn = c.square().sum(dim=1)
+        cbf = c.to(torch.bfloat16)
+        a = torch.cat([(cn[None, :] - 2.0 * matmul(x[s : s + block].to(torch.bfloat16), cbf.T)).argmin(dim=1)
+                       for s in range(0, s_total, block)])
+        a = torch.where(valid, a, torch.full_like(a, k))
+        sums = torch.zeros((k, d), dtype=torch.float32, device=dev)
+        counts = torch.zeros((k,), dtype=torch.float32, device=dev)
+        for s in range(0, s_total, oh_rows):
+            a_b = a[s : s + oh_rows]
+            one_hot = torch.zeros((a_b.shape[0], k + 1), dtype=torch.bfloat16, device=dev)
+            one_hot[torch.arange(a_b.shape[0], device=dev), a_b] = 1.0
+            one_hot = one_hot[:, :k]
+            counts += one_hot.sum(dim=0, dtype=torch.float32)
+            sums += matmul(one_hot.T, x[s : s + oh_rows].float())
+        c = torch.where(counts[:, None] > 0, sums / counts.clamp_min(1.0)[:, None], c)
+    return c
+
+
+def _centroid_dists(rows: torch.Tensor, cent: torch.Tensor) -> torch.Tensor:
+    """|c|^2 - 2 r.c, [rows, K] f32, from the rows and centroids in bf16."""
+    cn = cent.float().square().sum(dim=1)
+    return cn[None, :] - 2.0 * matmul(rows.to(torch.bfloat16), cent.to(torch.bfloat16).T)
+
+
+def _assign_clusters(emb: torch.Tensor, cent: torch.Tensor, block: int) -> torch.Tensor:
+    """emb [Np, D], cent [K, D] -> nearest centroid, i32 [Np] (blocked)."""
+    return torch.cat([_centroid_dists(emb[s : s + block], cent).argmin(dim=1)
+                      for s in range(0, emb.shape[0], block)]).to(torch.int32)
+
+
+def _assign_clusters_topk(emb: torch.Tensor, cent: torch.Tensor, block: int, p: int) -> torch.Tensor:
+    """emb [Np, D], cent [K, D] -> the ``p`` nearest centroids, i32 [Np, p]."""
+    return torch.cat([torch.topk(-_centroid_dists(emb[s : s + block], cent), p, dim=1).indices
+                      for s in range(0, emb.shape[0], block)]).to(torch.int32)
+
+
+def _window_knn_device(ebf: torch.Tensor, norms: torch.Tensor, n_real: int, k: int,
+                       window: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Exact k-NN inside consecutive windows of ``window`` rows -> (ids
+    i32 [Np, k] as row numbers of ``ebf``, -1 where fewer than k, dists f32
+    [Np, k]). ebf bf16 [Np, D] (Np a multiple of ``window``), norms f32
+    [Np]; rows >= ``n_real`` are padding, never a neighbor; self excluded.
+    Windows go through in batches of one bf16 product each, top-k by
+    ``torch.topk`` (the JAX package's ``lax.top_k``, outside Pallas)."""
+    np_total, d = ebf.shape
+    dev = ebf.device
+    n_win = np_total // window
+    per = max(1, WINDOW_BATCH_BYTES // (12 * window * window))
+    loc = torch.arange(window, device=dev)
+    self_mask = loc[:, None] == loc[None, :]
+    out_i, out_d = [], []
+    for w0 in range(0, n_win, per):
+        nw = min(per, n_win - w0)
+        we = ebf[w0 * window : (w0 + nw) * window].view(nw, window, d)
+        wn = norms[w0 * window : (w0 + nw) * window].view(nw, window)
+        dmat = wn[:, :, None] + wn[:, None, :] - 2.0 * matmul(we, we.transpose(1, 2))
+        start = (w0 + torch.arange(nw, device=dev)) * window
+        bad = ((start[:, None] + loc[None, :]) >= n_real)[:, None, :] | self_mask[None]
+        dmat = dmat.masked_fill(bad, INF)
+        neg, pos = torch.topk(-dmat, k, dim=2)
+        dist = -neg
+        ids = torch.where(dist < INF, pos + start[:, None, None], torch.full_like(pos, -1))
+        out_i.append(ids.reshape(nw * window, k).to(torch.int32))
+        out_d.append(dist.reshape(nw * window, k))
+    return torch.cat(out_i), torch.cat(out_d)
+
+
+def _train_cells(sample: np.ndarray, n_clusters: int, rng: np.random.Generator, n_iters: int,
+                 dev: torch.device) -> torch.Tensor:
+    """k-means centroids of an f32 host sample, initialised at
+    ``n_clusters`` of its rows drawn by ``rng`` (the JAX package's draw)."""
+    init_c = sample[rng.choice(sample.shape[0], n_clusters, replace=False)]
+    return _kmeans_full(torch.from_numpy(np.ascontiguousarray(sample)).to(dev),
+                        torch.from_numpy(np.ascontiguousarray(init_c)).to(dev), sample.shape[0], n_iters)
+
+
+def _window_lists(emb: np.ndarray, exp_orig: np.ndarray, k: int, window: int, chunk_rows: int,
+                  norms_of_bf16: bool, dev: torch.device, scratch_dir: str = "") -> Tuple[np.ndarray, np.ndarray]:
+    """The window k-NN over the expanded rows ``emb[exp_orig]``, streamed
+    through the device ``chunk_rows`` (a multiple of ``window``) at a time
+    -> (original node ids i32 [E, k], -1 where none; dists f32 [E, k]). Each
+    chunk's rows are gathered on the host by torch's threads, go up in the
+    matrix's type and are cast to bf16 there; their norms are those of the
+    bf16 rows (``norms_of_bf16``, spill) or of the f32 rows (the cluster
+    bootstrap). Windows are chunk-aligned, so the lists do not depend on
+    ``chunk_rows``."""
+    ne = exp_orig.shape[0]
+    ids = _big_empty((ne, k), np.int32, scratch_dir, "spill_exp_ids.npy")
+    dists = _big_empty((ne, k), np.float32, scratch_dir, "spill_exp_d.npy")
+    src = torch.from_numpy(np.asarray(emb))
+    order = torch.from_numpy(np.asarray(exp_orig, np.int64))
+    t0 = time.time()
+    for ci, s in enumerate(range(0, ne, chunk_rows)):
+        if ci % 8 == 7:
+            logger.info("spill_knn window: %d/%d rows (%.0fs)", s, ne, time.time() - t0)
+        e = min(s + chunk_rows, ne)
+        node = order[s:e]
+        rows = src.index_select(0, node).to(dev).float()
+        pad = -(e - s) % window
+        ebf = torch.nn.functional.pad(rows.to(torch.bfloat16), (0, 0, 0, pad))
+        norms = torch.nn.functional.pad((ebf.float() if norms_of_bf16 else rows).square().sum(dim=1), (0, pad))
+        del rows
+        ids_c, dists_c = _window_knn_device(ebf, norms, e - s, k, window)
+        del ebf, norms
+        # chunk-local row numbers -> expanded positions -> original node ids
+        ids_c = ids_c[: e - s].long()
+        node = node.to(dev)
+        ids[s:e] = torch.where(ids_c >= 0, node[ids_c.clamp_min(0)], ids_c).to(torch.int32).cpu().numpy()
+        dists[s:e] = dists_c[: e - s].cpu().numpy()
+    logger.info("spill_knn window pass: %.1fs (%d chunks)", time.time() - t0, -(-ne // chunk_rows))
+    return ids, dists
+
+
+def _chunk_rows(d: int, k: int, window: int, dev: torch.device) -> int:
+    """Expanded rows per window-pass upload: the f32 rows, their bf16 copy
+    and the lists within :func:`_device_budget`, a multiple of ``window``."""
+    rows = _device_budget(dev) // (6 * d + 16 * k + 16)
+    return max(window, (int(rows) // window) * window)
+
+
+def cluster_window_init(
+    emb: np.ndarray, k: int, window: int = 2048, seed: int = 0,
+    points_per_cluster: int = 64, kmeans_sample: int = 65536, kmeans_iters: int = 8,
+    n_probe: int = 1, device: "str | torch.device" = "cuda",
+) -> Tuple[np.ndarray, np.ndarray]:
+    """IVF-style k-NN init (NN-descent's cluster bootstrap): k-means on a
+    sample -> rows sorted by cluster -> exact k-NN inside fixed windows of
+    the sorted order -> (ids i32[N, k], dists f32[N, k], INF / -1 where
+    none). ``n_probe > 1``: each row enters the windows of its ``n_probe``
+    nearest clusters and its lists are merged and deduplicated
+    (:func:`_merge_spill_lists`), so boundary rows see both sides of their
+    cluster split. The JAX package's host steps, draw for draw: an unsorted
+    sample, the cluster and sample counts, stable sorts; norms of the f32
+    rows."""
+    dev = resolve_device(device)
+    n, d = emb.shape
+    rng = np.random.default_rng(seed)
+    n_clusters = max(8, min(n // points_per_cluster, 65536))
+    # the sample must be able to populate the clusters (>= 8 rows each); a
+    # power of two, as the JAX package buckets it
+    s_target = min(n, max(kmeans_sample, 8 * n_clusters))
+    s_count = 1 << (max(s_target, 2).bit_length() - 1)
+    sample = np.asarray(emb[rng.choice(n, min(s_count, n), replace=False)], np.float32)
+    cent = _train_cells(sample, n_clusters, rng, kmeans_iters, dev)
+
+    chunk = _chunk_rows(d, max(k, n_probe), window, dev)
+    parts = []
+    for s in range(0, n, chunk):
+        rows = torch.from_numpy(np.asarray(emb[s : s + chunk], np.float32)).to(dev)
+        parts.append((_assign_clusters(rows, cent, 8192)[:, None] if n_probe <= 1 else
+                      _assign_clusters_topk(rows, cent, 8192, n_probe)).cpu().numpy())
+    assign = np.concatenate(parts)
+    if n_probe <= 1:
+        exp_orig = np.argsort(assign[:, 0], kind="stable").astype(np.int64)  # each row appears once
+    else:
+        exp_node = np.repeat(np.arange(n, dtype=np.int64), n_probe)
+        exp_orig = exp_node[np.argsort(assign.reshape(-1), kind="stable")]  # node of each expanded row
+    ids, dists_w = _window_lists(emb, exp_orig, k, window, chunk, False, dev)
+    if n_probe <= 1:
+        out_ids = np.full((n, k), -1, np.int32)
+        out_d = np.full((n, k), np.float32(INF), np.float32)
+        out_ids[exp_orig] = ids
+        out_d[exp_orig] = dists_w
+        return out_ids, out_d
+    return _merge_spill_lists(ids, dists_w, exp_orig, n, n_probe, k, device=dev)
+
+
+def _merge_spill_lists(ids: np.ndarray, dists: np.ndarray, exp_orig: np.ndarray,
+                       n: int, n_probe: int, k: int, row_block: int = 1 << 20,
+                       scratch_dir: str = "", device: "str | torch.device" = "cpu") -> Tuple[np.ndarray, np.ndarray]:
+    """Merge each node's ``n_probe`` window lists -> its k best, deduplicated
+    (ids i32[N, k], dists f32[N, k]); ids / dists are host arrays [N
+    n_probe, k] in expanded-row order and ``exp_orig`` maps expanded rows to
+    nodes. ``row_block`` nodes at a time go to ``device`` and back into the
+    host outputs (memmaps in ``scratch_dir`` past ``SPILL_MEMMAP_BYTES``).
+    The JAX package's three stable sorts, bit for bit: by distance, then by
+    id (the best distance of an id first), repeats blanked, then by
+    distance again. The JAX package sorts row by row in host numpy on one
+    core, which at 1M nodes takes longer than the rest of the pass; here
+    the same stable sorts run on the device."""
+    dev = torch.device(device)
+    pos_by_node = torch.from_numpy(np.argsort(exp_orig, kind="stable"))  # node-major: [n n_probe]
+    src_i, src_d = torch.from_numpy(np.asarray(ids)), torch.from_numpy(np.asarray(dists))
+    out_ids = _big_empty((n, k), np.int32, scratch_dir, "spill_out_ids.npy")
+    out_d = _big_empty((n, k), np.float32, scratch_dir, "spill_out_d.npy")
+    for s in range(0, n, row_block):
+        e = min(s + row_block, n)
+        pos = pos_by_node[s * n_probe : e * n_probe]  # gathered on the host by torch's threads
+        ids_cat = src_i.index_select(0, pos).to(dev).long().reshape(e - s, n_probe * k)
+        d_cat = src_d.index_select(0, pos).to(dev).float().reshape(e - s, n_probe * k)
+        own = torch.arange(s, e, device=dev)[:, None]
+        self_or_pad = (ids_cat == own) | (ids_cat < 0)
+        d_cat = d_cat.masked_fill(self_or_pad, INF)
+        ids_cat = ids_cat.masked_fill(self_or_pad, -1)
+        d1, o1 = torch.sort(d_cat, dim=1, stable=True)
+        ids2, o2 = torch.sort(ids_cat.gather(1, o1), dim=1, stable=True)
+        d2 = d1.gather(1, o2)
+        dup = torch.zeros_like(ids2, dtype=torch.bool)
+        dup[:, 1:] = (ids2[:, 1:] == ids2[:, :-1]) & (ids2[:, 1:] >= 0)
+        d2 = d2.masked_fill(dup, INF)
+        ids2 = ids2.masked_fill(dup, -1)
+        bd, o3 = torch.sort(d2, dim=1, stable=True)
+        bd = bd[:, :k]
+        bi = ids2.gather(1, o3[:, :k]).masked_fill(bd >= INF, -1)
+        out_ids[s:e] = bi.to(torch.int32).cpu().numpy()
+        out_d[s:e] = bd.cpu().numpy()
+    return out_ids, out_d
+
+
+def spill_knn_streamed(
+    emb: np.ndarray, k: int, window: int = 2048, n_probe: int = 2, seed: int = 0,
+    points_per_cluster: int = 64, kmeans_sample: int = 65536, kmeans_iters: int = 8,
+    chunk_rows: Optional[int] = None, scratch_dir: str = "", device: "str | torch.device" = "cuda",
+) -> Tuple[np.ndarray, np.ndarray]:
+    """``LEANN_KNN_MODE=spill``: :func:`cluster_window_init` at ``n_probe``
+    probes for a matrix that stays in host RAM (f32 or f16, a memmap
+    allowed); the card sees ``chunk_rows`` rows at a time (default: sized
+    from its free memory; a multiple of ``window``) for the assignment and
+    for the window pass, which are chunk-local. It differs from
+    :func:`cluster_window_init` as the JAX package's does: the k-means
+    sample is sorted, and the norms are those of the bf16 rows. Approximate:
+    a row's candidates are the rows of its clusters' windows. ``scratch_dir``
+    takes the expanded lists and the output as memmaps past
+    ``SPILL_MEMMAP_BYTES`` -> (ids i32[N, k], dists f32[N, k])."""
+    dev = resolve_device(device)
+    n, d = emb.shape
+    chunk_rows = chunk_rows or _chunk_rows(d, k, window, dev)
+    if chunk_rows % window:
+        raise ValueError(f"chunk_rows={chunk_rows} is not a multiple of window={window}")
+    rng = np.random.default_rng(seed)
+    n_clusters = max(8, min(n // points_per_cluster, 65536))
+    s_target = min(n, max(kmeans_sample, 8 * n_clusters))
+    s_count = 1 << (max(s_target, 2).bit_length() - 1)
+    sample = np.asarray(emb[np.sort(rng.choice(n, min(s_count, n), replace=False))], np.float32)
+    cent = _train_cells(sample, n_clusters, rng, kmeans_iters, dev)
+
+    t0 = time.time()
+    assign = np.empty((n, n_probe), np.int32)
+    for ci, s in enumerate(range(0, n, chunk_rows)):
+        e = min(s + chunk_rows, n)
+        rows = torch.from_numpy(np.asarray(emb[s:e], np.float32)).to(dev)
+        assign[s:e] = _assign_clusters_topk(rows, cent, 8192, n_probe).cpu().numpy()
+        if ci % 8 == 7:
+            logger.info("spill_knn assign: %d/%d rows (%.0fs)", e, n, time.time() - t0)
+    logger.info("spill_knn assign: %.1fs", time.time() - t0)
+
+    exp_node = np.repeat(np.arange(n, dtype=np.int64), n_probe)
+    exp_orig = exp_node[np.argsort(assign.reshape(-1), kind="stable")]
+    del exp_node, assign
+    ids, dists = _window_lists(emb, exp_orig, k, window, chunk_rows, True, dev, scratch_dir)
+    out = _merge_spill_lists(ids, dists, exp_orig, n, n_probe, k, scratch_dir=scratch_dir, device=dev)
+    if isinstance(ids, np.memmap):  # the expanded lists are dead after the merge
+        del ids, dists
+        for f in ("spill_exp_ids.npy", "spill_exp_d.npy"):
+            try:
+                os.remove(os.path.join(scratch_dir, f))
+            except OSError:
+                pass
+    return out
+
+
+def _reverse_edges_device(nbrs: torch.Tensor, key: np.ndarray, cap: int, rows_per_chunk: int = 0) -> torch.Tensor:
+    """Sampled reverse edges: up to ``cap`` in-edges per node -> i32 [Np,
+    cap], -1 where empty. Each edge (i -> j) throws i at a random slot of
+    row j (``jax.random.randint(key, (Np k,), 0, cap)``'s draws), drawn and
+    thrown ``rows_per_chunk`` source rows at a time (all at once for 0): a
+    slot's draw hashes its flat index, so every split gives the same slots.
+    Where edges collide on a slot, the one with the largest flat index over
+    [Np, k] wins, in any order of writes: the JAX package's scatter keeps
+    the last write, which on the CPU is the largest index, while a CUDA
+    scatter with duplicates keeps any one. A flat index orders by its
+    source row first, so the winner is the largest source row:
+    ``scatter_reduce`` "amax" of the rows."""
+    np_total, k = nbrs.shape
+    dev = nbrs.device
+    step = rows_per_chunk or np_total
+    rev = torch.full((np_total * cap,), -1, dtype=torch.int32, device=dev)
+    for s in range(0, np_total, step):
+        e = min(s + step, np_total)
+        slot = seeded.randint_range(key, s * k, e * k, 0, cap, dev)
+        dst = nbrs[s:e].reshape(-1).long()
+        ok = dst >= 0
+        src = torch.arange(s, e, dtype=torch.int32, device=dev).repeat_interleave(k)
+        rev.scatter_reduce_(0, (dst * cap + slot)[ok], src[ok], reduce="amax")
+        del slot, dst, ok, src
+    return rev.view(np_total, cap)
+
+
+def _nn_descent_iter(ebf: torch.Tensor, norms: torch.Tensor, nbrs: torch.Tensor, rev: torch.Tensor,
+                     old_dists: torch.Tensor, n_real: int, row_start: int, od_base: int, key: np.ndarray,
+                     k: int, k2: int, h: int, n_rand: int, block: int,
+                     n_blocks: int) -> Tuple[torch.Tensor, torch.Tensor, int]:
+    """One NN-descent round over ``n_blocks`` blocks of ``block`` rows from
+    ``row_start`` -> (ids i32 [rows, k], dists f32 [rows, k], slots
+    improved). Per row: its neighbors, its sampled reverse edges, the
+    forward and reverse lists of ``h`` closest-first plus random neighbor
+    seeds and ``h`` random reverse seeds (``k2`` each), and ``n_rand``
+    random rows (drawn per block with ``fold_in(k_rand, s // block)``);
+    self and padding dropped, sorted and deduplicated, scored against the
+    row by bf16 products with f32 sums, the k nearest kept. ``old_dists``
+    holds the previous distances of rows from ``od_base``. A slot counts as
+    improved where its sorted distance fell by more than 0.1%. The JAX
+    package's round, candidate for candidate."""
+    np_total, d = ebf.shape
+    dev = ebf.device
+    _, k_hop1, k_hop2, k_rand = seeded.split(key, 4)
+    n_close = max(1, h // 2)
+    cols1 = torch.from_numpy(np.concatenate([
+        np.arange(n_close, dtype=np.int64),
+        seeded.permutation(k_hop1, k - n_close)[: h - n_close].astype(np.int64) + n_close])).to(dev)
+    cols2 = torch.from_numpy(seeded.permutation(k_hop2, k)[:h].astype(np.int64)).to(dev)
+    out_i = torch.empty((n_blocks * block, k), dtype=torch.int32, device=dev)
+    out_d = torch.empty((n_blocks * block, k), dtype=torch.float32, device=dev)
+    changed = torch.zeros((), dtype=torch.int64, device=dev)
+    # several blocks a step (the rows are independent; only the random
+    # escapes are drawn per block): the [rows, C, D] gather within half the
+    # device budget
+    c_width = 2 * k + 4 * h * k2 + n_rand
+    per_step = max(1, _device_budget(dev) // 2 // (block * c_width * d * 2))
+    first_blk = row_start // block
+    for g in range(0, n_blocks, per_step):
+        ng = min(per_step, n_blocks - g)
+        s, rows = row_start + g * block, ng * block
+        keys = seeded.fold_in(k_rand, np.arange(first_blk + g, first_blk + g + ng))
+        rand = seeded.randint_many(keys, block * n_rand, 0, max(n_real, 1), dev).reshape(rows, n_rand)
+        nb = nbrs[s : s + rows].long()
+        rv = rev[s : s + rows].long()
+        od = old_dists[s - od_base : s - od_base + rows]
+        hop_seed = torch.cat([nb[:, cols1], rv[:, cols2]], dim=1)  # [rows, 2h]
+        seed_safe = hop_seed.clamp(0, np_total - 1)
+        # both directions through each seed: its neighbors and its reverse edges
+        two = torch.cat([nbrs[seed_safe, :k2], rev[seed_safe, :k2]], dim=1).reshape(rows, 4 * h * k2).long()
+        # (the JAX package's mask: seed i blanks the 2 k2 columns from i 2 k2)
+        two = two.masked_fill((hop_seed < 0).repeat_interleave(2 * k2, dim=1), -1)
+        cand = torch.cat([nb, rv, two, rand], dim=1)
+        row_ids = torch.arange(s, s + rows, device=dev)[:, None]
+        cand = cand.masked_fill((cand == row_ids) | (cand >= n_real), -1)
+        cand = cand.sort(dim=1).values
+        dup = torch.zeros_like(cand, dtype=torch.bool)
+        dup[:, 1:] = cand[:, 1:] == cand[:, :-1]
+        cid = cand.masked_fill(dup, -1)
+        safe = cid.clamp(0, np_total - 1)
+        dots = matmul(ebf[safe], ebf[s : s + rows, :, None])[:, :, 0]
+        dist = norms[s : s + rows, None] + norms[safe] - 2.0 * dots
+        dist = dist.masked_fill(cid < 0, INF)
+        neg, pos = torch.topk(-dist, k, dim=1)
+        d_b = -neg
+        ids_b = torch.where(d_b < INF, cid.gather(1, pos), torch.full_like(pos, -1))
+        real = row_ids < n_real  # padding rows stay neighborless: they emit no reverse edge
+        ids_b = ids_b.masked_fill(~real, -1)
+        changed += ((d_b < od * (1.0 - 1e-3)) & real).sum()
+        out_i[g * block : g * block + rows] = ids_b.to(torch.int32)
+        out_d[g * block : g * block + rows] = d_b
+    return out_i, out_d, int(changed)
+
+
+# card bytes a slot holds while its chunk of the reverse-edge draw is drawn
+# and thrown: the draw (8), destination, target and their masked copies
+# (32), source row and its masked copy (8), mask (1); the hash's own
+# temporaries are bounded by its chunk of counters (seeded._CHUNK)
+REV_DRAW_SLOT_BYTES = 56
+
+
+def _rows_within(nbytes: float, row_bytes: int, np_total: int, block: int) -> int:
+    """Rows of ``row_bytes`` each within ``nbytes``: a multiple of ``block``
+    between one block and ``np_total``."""
+    rows = int(min(nbytes / row_bytes, np_total))
+    return min(np_total, max(block, rows // block * block))
+
+
+def descent_budget(device: "str | torch.device") -> float:
+    """Card bytes above which :func:`nn_descent` keeps its distances and
+    round outputs in host RAM, and within which it sizes each chunk of the
+    reverse-edge draw and of a host-resident round: half of the card's free
+    memory (re-derived from the card, not the TPU's 12.5e9); none on the
+    CPU.
+    LEANN_DESCENT_HBM_BUDGET, where set, is the budget on either."""
+    dev = torch.device(device)
+    budget = float("inf")
+    if dev.type == "cuda":
+        free, _ = torch.cuda.mem_get_info(dev)
+        budget = float(free // 2)
+    return env_override("LEANN_DESCENT_HBM_BUDGET", budget)
+
+
+def nn_descent(
+    emb: np.ndarray, k: int, n_iters: int = 16, block: int = 2048, seed: int = 0,
+    min_update_frac: float = 0.03, bootstrap: str = "cluster", checkpoint_dir: str = "",
+    device: "str | torch.device" = "cuda",
+) -> Tuple[np.ndarray, np.ndarray]:
+    """``LEANN_KNN_MODE=descent``: an approximate k-NN graph by NN-descent,
+    O(N C D) a round -> (ids i32[N, k], dists f32[N, k]). Bootstrap above
+    4,096 rows: :func:`cluster_window_init` at 2 probes; below, k random
+    other rows. Each round (:func:`_nn_descent_iter`) joins the rows'
+    neighbors, sampled reverse edges (:func:`_reverse_edges_device`), 2-hop
+    seeds and random escapes; it stops once the improved slots have peaked
+    and fallen below ``min_update_frac`` of N k. The round's key is
+    ``fold_in(key(seed), it)``, so the candidate stream is the JAX
+    package's and a resumed run replays the killed run's.
+
+    The bf16 matrix, the lists and the reverse edges live on the card;
+    past :func:`descent_budget` the distances and each round's output stay
+    in host RAM and stream through in chunks (the same lists). Each round's
+    reverse-edge draw goes in chunks of rows within what the budget leaves
+    (the same slots). The [block,
+    C, D] gather is capped at 256 MB; the block fixes the random escapes'
+    stream. ``checkpoint_dir``: the JAX package's state files
+    (``nd_state_{i,d}.npy``, ``nd_state.json`` with the corpus key, the
+    next round and the last count), written after the bootstrap and at most
+    every LEANN_EXACT_QCKPT_SECS seconds after a round, resumed when the key
+    matches, removed at the end; either package resumes the other's."""
+    dev = resolve_device(device)
+    n, d = emb.shape
+    h = min(k, max(4, 512 // max(k, 1)))  # 2-hop seed columns
+    k2 = min(k, 32)  # neighbors gathered per seed
+    n_rand = max(4, k // 4)
+    c_est = 2 * k + 4 * h * k2 + n_rand
+    mem_cap = max(64, int((256 << 20) / max(c_est * d * 2, 1)))
+    block = max(8, (min(block, mem_cap) // 8) * 8)
+    np_total = _bucket_rows(n, block)
+
+    nd_key = ""
+    start_it, prev_changed0 = 0, None
+    nd_i_path = nd_d_path = nd_meta_path = ""
+    nbrs0 = dists0 = None
+
+    def save_state(ids: np.ndarray, dists: np.ndarray, it: int, prev) -> None:
+        np.save(nd_i_path + ".tmp.npy", ids)
+        np.save(nd_d_path + ".tmp.npy", dists)
+        os.replace(nd_i_path + ".tmp.npy", nd_i_path)
+        os.replace(nd_d_path + ".tmp.npy", nd_d_path)
+        tmp = nd_meta_path + ".tmp"
+        with open(tmp, "w") as f:
+            json.dump({"key": nd_key, "iter": it, "prev_changed": prev}, f)
+        os.replace(tmp, nd_meta_path)
+
+    if checkpoint_dir:
+        os.makedirs(checkpoint_dir, exist_ok=True)
+        nd_key = _ckpt_key(emb, f"k{k}nd_{bootstrap}_s{seed}")
+        nd_i_path = os.path.join(checkpoint_dir, "nd_state_i.npy")
+        nd_d_path = os.path.join(checkpoint_dir, "nd_state_d.npy")
+        nd_meta_path = os.path.join(checkpoint_dir, "nd_state.json")
+        if os.path.exists(nd_meta_path):
+            try:
+                with open(nd_meta_path) as f:
+                    m = json.load(f)
+            except Exception:
+                m = {}
+            if m.get("key") == nd_key and os.path.exists(nd_i_path) and os.path.exists(nd_d_path):
+                nbrs0 = np.load(nd_i_path)
+                dists0 = np.load(nd_d_path)
+                start_it = int(m.get("iter", 0))
+                prev_changed0 = m.get("prev_changed")
+                logger.info("nn_descent: resumed at iter %d from %s", start_it, nd_meta_path)
+
+    if nbrs0 is not None:
+        pass
+    elif bootstrap == "cluster" and n > 4096:
+        t0 = time.time()
+        nbrs0, dists0 = cluster_window_init(emb, k, seed=seed, n_probe=2, device=dev)
+        logger.info("nn_descent cluster init: %.1fs", time.time() - t0)
+        if checkpoint_dir:  # the bootstrap is the longest stretch without a state
+            save_state(nbrs0, dists0, 0, None)
+    else:
+        rng = np.random.default_rng(seed)
+        nbrs0 = rng.integers(0, n - 1, size=(n, k)).astype(np.int32)
+        nbrs0 = np.where(nbrs0 >= np.arange(n)[:, None], nbrs0 + 1, nbrs0)  # no self
+        dists0 = np.full((n, k), np.float32(INF), np.float32)
+    # on the card: the bf16 matrix and f32 norms; a slot's list, reverse
+    # edge and distance (12 B) and the next round's list and distance (8 B).
+    # Host-resident state keeps a slot's list and reverse edge there (8 B)
+    matrix = np_total * (2 * d + 4)
+    est_dev = matrix + np_total * k * 20
+    budget = descent_budget(dev)
+    host_state = est_dev > budget
+    if host_state:
+        logger.info("nn_descent: host-resident state (est %.1f GB on the card > budget %.1f GB)",
+                    est_dev / 1e9, budget / 1e9)
+    left = max(budget - (matrix + np_total * k * (8 if host_state else 20)), 0.0)
+    # what is left bounds each reverse-edge draw and, in host RAM, each
+    # round's chunk of rows (their distances in, lists and distances out)
+    rev_rows = _rows_within(left, k * REV_DRAW_SLOT_BYTES, np_total, block)
+    rows_per_dispatch = _rows_within(left, k * 12, np_total, block) if host_state else np_total
+    nbrs_h = _pad_rows(np.asarray(nbrs0, np.int32), np_total, fill=-1)
+    dists_h = _pad_rows(np.asarray(dists0, np.float32), np_total, fill=np.float32(INF))
+    # copies: on the CPU a tensor from numpy shares the host arrays written below
+    nbrs = torch.from_numpy(nbrs_h).to(dev, copy=True)
+    # bf16 rows cast on the card block by block; f32 norms of the f32 rows
+    # from the host, as the JAX package takes them
+    ebf = torch.zeros((np_total, d), dtype=torch.bfloat16, device=dev)
+    norms_h = np.zeros(np_total, np.float32)
+    for s in range(0, n, HOST_BLOCK_ROWS):
+        b32 = np.asarray(emb[s : s + HOST_BLOCK_ROWS], dtype=np.float32)
+        ebf[s : s + b32.shape[0]] = torch.from_numpy(b32).to(dev).to(torch.bfloat16)
+        norms_h[s : s + b32.shape[0]] = np.einsum("ij,ij->i", b32, b32)
+    norms = torch.from_numpy(norms_h).to(dev)
+    dists = None if host_state else torch.from_numpy(dists_h).to(dev, copy=True)
+    base_key = seeded.key(seed)
+    qckpt_secs = env_override("LEANN_EXACT_QCKPT_SECS", QCKPT_SECS)
+    prev_changed = prev_changed0
+    t_ckpt = time.time()
+    for it in range(start_it, n_iters):
+        t0 = time.time()
+        rev_key, it_key = seeded.split(seeded.fold_in(base_key, it), 2)
+        rev = _reverse_edges_device(nbrs, rev_key, k, rev_rows)
+        if host_state:
+            changed = 0
+            for s in range(0, np_total, rows_per_dispatch):
+                rows = min(rows_per_dispatch, np_total - s)
+                od_c = torch.from_numpy(np.ascontiguousarray(dists_h[s : s + rows])).to(dev)
+                ids_c, d_c, chg = _nn_descent_iter(ebf, norms, nbrs, rev, od_c, n, s, s, it_key, k, k2, h,
+                                                   n_rand, block, rows // block)
+                nbrs_h[s : s + rows] = ids_c.cpu().numpy()
+                dists_h[s : s + rows] = d_c.cpu().numpy()
+                changed += chg
+            del nbrs, rev  # the old round's lists go before the new ones come up
+            nbrs = torch.from_numpy(nbrs_h).to(dev, copy=True)
+        else:
+            nbrs, dists, changed = _nn_descent_iter(ebf, norms, nbrs, rev, dists, n, 0, 0, it_key, k, k2, h,
+                                                    n_rand, block, np_total // block)
+            del rev
+        logger.info("nn_descent iter %d: %.3f%% slots improved (%.2fs)", it, 100 * changed / (n * k),
+                    time.time() - t0)
+        if checkpoint_dir and time.time() - t_ckpt > qckpt_secs:
+            save_state(nbrs_h if host_state else nbrs.cpu().numpy(),
+                       dists_h if host_state else dists.cpu().numpy(), it + 1, changed)
+            t_ckpt = time.time()
+        # stop once the join has peaked AND fallen below the floor: on
+        # clustered corpora the improved fraction first rises through a
+        # connectivity transition
+        if changed < min_update_frac * n * k and (prev_changed is None or changed < prev_changed):
+            break
+        prev_changed = changed
+    if checkpoint_dir:  # done: the caller saves ckpt_knn.npy next
+        for p in (nd_i_path, nd_d_path, nd_meta_path):
+            try:
+                os.remove(p)
+            except OSError:
+                pass
+    if host_state:
+        return nbrs_h[:n], dists_h[:n]
+    return nbrs.cpu().numpy()[:n], dists.cpu().numpy()[:n]
 
 
 def _prune_select(cid: torch.Tensor, d_pc: torch.Tensor, d_cc: torch.Tensor, r: int, alpha: float,
@@ -764,8 +1374,10 @@ def build_graph(
 
     knn(C = r * candidate_factor) -> α-prune to <= R (keeping the closest
     ``keep_closest`` unconditionally) -> reverse-edge fill to R. Above
-    :func:`exact_knn_max_n` the k-NN is :func:`exact_knn_sharded`; above
-    :func:`prune_ebf_max_bytes` the prune decodes candidates from PQ codes.
+    :func:`exact_knn_max_n` the k-NN is :func:`exact_knn_sharded`, or, as
+    LEANN_KNN_MODE says, :func:`spill_knn_streamed` ("spill") or
+    :func:`nn_descent` ("descent"); above :func:`prune_ebf_max_bytes` the
+    prune decodes candidates from PQ codes.
     The candidate lists stay on the host and go up ``PRUNE_DISPATCH_ROWS``
     rows at a time.
 
@@ -774,7 +1386,9 @@ def build_graph(
     and the phase's parameters, and a rerun resumes at the last finished
     phase, also from a directory the JAX package wrote (the sharded k-NN's
     mid-phase state only where its geometry matches: see
-    :func:`exact_knn_sharded`). The k-NN grid comes from
+    :func:`exact_knn_sharded`; NN-descent's state). The k-NN checkpoint's
+    key names the pass as the JAX package's does (``c{C}ex`` exact past the
+    card, ``c{C}nd`` descent, ``c{C}`` otherwise). The k-NN grid comes from
     ``tile_plan.plan_launch`` and the prune's block from
     ``PRUNE_BLOCK_BYTES``. ``phase_seconds``, when given, receives the wall
     time of each phase."""
@@ -795,20 +1409,15 @@ def build_graph(
         keep_closest = r // 4
     rc_tag = f"_rc{reverse_candidates}" if reverse_candidates > 0 else ""
     sharded = n > exact_knn_max_n(d, c, dev)  # the bf16 matrix and the lists outgrow the card
-    # past the card the JAX package reads LEANN_KNN_MODE: "spill" and
-    # "descent" select its approximate k-NN, which the port does not have;
-    # any other value, or none, the exact pass. Below the card it is not read
+    # past the card LEANN_KNN_MODE picks the candidate pass, as in the JAX
+    # package: "spill" and "descent" the approximate ones, any other value
+    # (or none) the exact sharded pass. Below the card it is not read
     knn_mode = os.environ.get("LEANN_KNN_MODE", "exact") if sharded else "small"
-    if knn_mode in ("spill", "descent"):
-        from ..backends.common import not_ported
-
-        raise not_ported(f"LEANN_KNN_MODE={knn_mode} (the approximate k-NN past the card's memory)",
-                         "ROADMAP.md §A #6")
     t0 = time.time()
     knn_path = prune_path = key = None
     if checkpoint_dir:
         os.makedirs(checkpoint_dir, exist_ok=True)
-        key = _ckpt_key(emb, f"c{c}ex" if sharded else f"c{c}")
+        key = _ckpt_key(emb, {"exact": f"c{c}ex", "descent": f"c{c}nd"}.get(knn_mode, f"c{c}"))
         knn_path = os.path.join(checkpoint_dir, "ckpt_knn.npy")
         prune_path = os.path.join(checkpoint_dir, "ckpt_pruned.npy")
         done = _ckpt_load(prune_path, f"{key}_r{r}_a{alpha}_kc{keep_closest}{rc_tag}")
@@ -825,16 +1434,31 @@ def build_graph(
     knn_resumed = knn_ids is not None
     if knn_resumed:
         logger.info("build_graph: resumed knn candidates from %s", knn_path)
+    elif knn_mode == "spill":
+        # window / cluster heuristic over the host-resident matrix: cheap,
+        # approximate (13% candidate recall at 10M in the JAX package)
+        knn_ids, _ = spill_knn_streamed(emb, c, scratch_dir=checkpoint_dir, device=dev)
+    elif knn_mode == "descent":
+        # cluster-bootstrapped NN-descent, O(N C D) a round where the exact
+        # pass is O(N^2 D); the bf16 matrix stays on the card
+        knn_ids, _ = nn_descent(emb, c, checkpoint_dir=checkpoint_dir or "", device=dev)
     elif sharded:
         knn_ids, _ = exact_knn_sharded(emb, c, checkpoint_dir=checkpoint_dir or "", device=dev)
     else:
         knn_ids, _ = exact_knn(emb, c, device=dev)
     if knn_path and not knn_resumed:
-        _ckpt_save(knn_path, key, knn_ids)
+        _ckpt_save(knn_path, key, knn_ids)  # renames a spill scratch memmap into place
+        for f in ("spill_out_ids.npy", "spill_out_d.npy"):  # dead once saved
+            try:
+                os.remove(os.path.join(checkpoint_dir, f))
+            except OSError:
+                pass
     times["knn"] = time.time() - t0
-    logger.info("build_graph knn phase: %.1fs (sharded=%s)", times["knn"], sharded)
+    logger.info("build_graph knn phase: %.1fs (mode=%s)", times["knn"], knn_mode)
     if sharded:
+        t0 = time.time()
         _trim_host("knn")
+        times["host_trim"] = time.time() - t0
     if reverse_candidates > 0 and n > 1:
         knn_ids = _augment_reverse_candidates(np.asarray(knn_ids), reverse_candidates)
     cw = knn_ids.shape[1]
@@ -859,7 +1483,9 @@ def build_graph(
     times["prune"] = time.time() - t0
     logger.info("build_graph prune phase: %.1fs (pq=%s)", times["prune"], pq_mode)
     if sharded:
+        t0 = time.time()
         _trim_host("prune")
+        times["host_trim"] += time.time() - t0
 
     t0 = time.time()
     out = _fill_reverse_edges(neighbors, np.random.default_rng(0))

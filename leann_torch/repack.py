@@ -8,16 +8,16 @@ Counterpart of the JAX package's ``repack.py``, on the same on-disk index:
     sequential id lists, turns step-function partition assignments into
     counts and moves legacy token stores to their ``.cache.`` names. Search
     results are unchanged: neighbor rows are sets to every consumer.
-  * :func:`relabel_index` renumbers the rows of a single-partition index in
-    a given order and permutes every per-row artifact with them (graph rows
-    and values, codes, embeddings, entries, medoid, ids in the ``perm``
-    format, token caches). Deriving a locality order from the geometry
-    (``order=None``) is not ported yet (ROADMAP.md §A #7): it rests on the
-    JAX package's k-means and locality order, and it measured as a net loss.
+  * :func:`relabel_index` renumbers the rows of a single-partition index by
+    locality (``ops/relabel.py``: k-means cells over the stored embeddings
+    or the PQ-decoded vectors, on the device), or in a given order, and
+    permutes every per-row artifact with them (graph rows and values, codes,
+    embeddings, entries, medoid, ids in the ``perm`` format, token caches).
   * :func:`unrelabel_index` puts a relabeled index back in the order its
     stored id permutation gives.
 
-CLI: ``python -m leann_torch.repack <prefix> [--unrelabel]``.
+CLI: ``python -m leann_torch.repack <prefix> [--relabel [--cells N] |
+--unrelabel] [--device cuda]``.
 """
 
 from __future__ import annotations
@@ -28,8 +28,9 @@ import os
 import shutil
 
 import numpy as np
+import torch
 
-from .backends.common import not_ported
+from .ops.relabel import decoded_source, edge_locality, locality_order, matrix_source
 from .storage import (
     index_all_in_bytes,
     load_ids,
@@ -103,29 +104,19 @@ def repack_index(prefix: str) -> dict:
     return {"before_bytes": before, "after_bytes": after, "steps": steps}
 
 
-def edge_locality(neighbors: np.ndarray, window: int = 1 << 16) -> float:
-    """Fraction of real edges whose |dst - src| < window: the quantity the
-    sorted-delta packer's size tracks."""
-    n = neighbors.shape[0]
-    src = np.repeat(np.arange(n, dtype=np.int64), neighbors.shape[1])
-    dst = neighbors.reshape(-1).astype(np.int64)
-    valid = dst >= 0
-    if not valid.any():
-        return 0.0
-    return float((np.abs(dst[valid] - src[valid]) < window).mean())
-
-
-def relabel_index(prefix: str, n_cells: int = 0, order: "np.ndarray | None" = None) -> dict:
+def relabel_index(prefix: str, n_cells: int = 0, order: "np.ndarray | None" = None,
+                  device: "str | torch.device" = "cuda") -> dict:
     """Renumber the rows of a single-partition index in place: new row j
     holds old row ``order[j]``. Permutes every per-row artifact (graph rows
     and values, codes, embeddings, entries, medoid, token caches) and stores
     the id permutation in the ``perm`` format; search results are the same
     up to the id mapping, which the searcher resolves through the ids list.
-    ``order=None`` (a locality order from the geometry, ``n_cells`` cells)
-    is not ported and raises."""
-    if order is None:
-        raise not_ported("relabel_index(order=None), the locality order from _kmeans_full",
-                         "ROADMAP.md §A #7")
+    ``order=None``: the locality order of ``n_cells`` cells (0: N / 2048
+    within [64, 8192]) over the index's stored embeddings, else its PQ codes
+    decoded, computed on ``device`` (``ops/relabel.py locality_order``); an
+    index too small for its cells keeps its order. The JAX package measured
+    the gain as corpus-dependent (a net loss on one synthetic corpus at
+    2.1M rows): :func:`unrelabel_index` undoes a relabel that did not pay."""
     path = backend = None
     for b in ("diskann", "hnsw"):
         cand = f"{prefix}.{b}.npz"
@@ -144,9 +135,22 @@ def relabel_index(prefix: str, n_cells: int = 0, order: "np.ndarray | None" = No
             "multi-partition index; re-run the build with relabeling instead")
     before = index_all_in_bytes(prefix)
     loc_before = edge_locality(nbr)
-    order = np.asarray(order, np.int64)
-    if order.shape != (n,):
-        raise ValueError(f"explicit order has shape {order.shape}, want ({n},)")
+    if order is None:
+        if "embeddings" in z:
+            src = matrix_source(np.asarray(z["embeddings"]))
+            d = int(z["embeddings"].shape[1])
+        elif "codes" in z:
+            src = decoded_source(np.asarray(z["codes"]), np.asarray(z["codebooks"]))
+            m, _, ds = z["codebooks"].shape
+            d = int(m * ds)
+        else:
+            raise ValueError("index stores neither embeddings nor PQ codes; "
+                             "no geometry to derive a locality order from")
+        order = locality_order(src, n, d, n_cells=n_cells, device=device)
+    else:
+        order = np.asarray(order, np.int64)
+        if order.shape != (n,):
+            raise ValueError(f"explicit order has shape {order.shape}, want ({n},)")
     if np.array_equal(order, np.arange(n)):
         return {"before_bytes": before, "after_bytes": before,
                 "steps": ["relabel: corpus too small, identity order"]}
@@ -217,13 +221,19 @@ def main(argv=None):
 
     ap = argparse.ArgumentParser(description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
     ap.add_argument("prefix", help="index prefix (path up to .leann)")
+    ap.add_argument("--relabel", action="store_true",
+                    help="locality-relabel node ids (ops/relabel.py) after repacking: shrinks the packed "
+                         "graph; single-partition indexes only")
     ap.add_argument("--unrelabel", action="store_true",
                     help="invert a previous relabel through the stored id permutation")
+    ap.add_argument("--cells", type=int, default=0, help="relabel cell count (0 = auto: N/2048 in [64, 8192])")
+    ap.add_argument("--device", default="cuda", help="device of the relabel's k-means (default cuda)")
     args = ap.parse_args(argv)
     logging.basicConfig(level=logging.INFO)
     rep = repack_index(args.prefix)
-    if args.unrelabel:
-        rep2 = unrelabel_index(args.prefix)
+    if args.relabel or args.unrelabel:
+        rep2 = (unrelabel_index(args.prefix) if args.unrelabel
+                else relabel_index(args.prefix, n_cells=args.cells, device=args.device))
         rep = {"before_bytes": rep["before_bytes"], "after_bytes": rep2["after_bytes"],
                "edge_locality_64k": rep2.get("edge_locality_64k"), "steps": rep["steps"] + rep2["steps"]}
     print(json.dumps(rep))

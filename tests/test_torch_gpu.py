@@ -779,3 +779,63 @@ def test_sentencepiece_checkpoint_builds_on_the_card(cuda, tmp_path, monkeypatch
     assert _overlap(ik.cpu().numpy(), ip.cpu().numpy()) >= 0.999
     assert float((dk - dp).abs().max()) <= 1e-5
     assert not (ik.cpu().numpy() == np.arange(n)[:, None]).any()
+
+
+def _clustered(seed, n, d, k_centers):
+    rng = np.random.default_rng(seed)
+    centers = rng.standard_normal((k_centers, d)).astype(np.float32) * 0.7
+    return centers[rng.integers(0, k_centers, n)] + rng.standard_normal((n, d)).astype(np.float32)
+
+
+def test_spill_and_descent_on_the_card(cuda):
+    """LEANN_KNN_MODE's passes on the card against the same code on the CPU
+    (plain torch both; products as bf16 with f32 sums): spill in chunks of
+    2 windows and the whole NN-descent (cluster bootstrap above 4,096
+    rows), by candidate recall against the exact lists and by id overlap.
+    The card sums the k-means distances in another order, so near-tied
+    assignments flip and spill's windows shift: its overlap is held to 0.9,
+    its recall to the CPU's within 0.01."""
+    from leann_torch.ops import graph
+
+    emb = _clustered(11, 5500, 64, 60)
+    exact, _ = graph.exact_knn(emb, 16, device="cuda")
+
+    def recall(ids):
+        return _overlap(exact, ids)
+
+    spill = graph.spill_knn_streamed(emb, 16, chunk_rows=4096, device="cuda")[0]
+    spill_cpu = graph.spill_knn_streamed(emb, 16, chunk_rows=4096, device="cpu")[0]
+    assert _overlap(spill, spill_cpu) >= 0.9 and abs(recall(spill) - recall(spill_cpu)) <= 0.01
+    rounds = []
+    real = graph._nn_descent_iter
+
+    def counting(*a, **kw):
+        rounds.append(1)  # one call a round with the state on the card
+        return real(*a, **kw)
+
+    graph._nn_descent_iter = counting
+    try:
+        desc = graph.nn_descent(emb, 16, device="cuda")[0]
+    finally:
+        graph._nn_descent_iter = real
+    desc_cpu = graph.nn_descent(emb, 16, device="cpu")[0]
+    assert len(rounds) >= 2 and abs(recall(desc) - recall(desc_cpu)) <= 0.01
+    assert _overlap(desc, desc_cpu) >= 0.99 and recall(desc) > recall(spill)
+    assert not (desc == np.arange(5500)[:, None]).any()
+
+
+def test_reverse_edge_scatter_is_deterministic(cuda):
+    """Colliding (node, slot) writes of the sampled reverse edges: the
+    largest flat index wins on the card as on the CPU, run after run."""
+    from leann_torch.embeddings import seeded
+    from leann_torch.ops import graph
+
+    rng = np.random.default_rng(4)
+    nbrs = rng.integers(0, 5000, (100_000, 64)).astype(np.int32)  # ~1,280 writes per row of 64 slots
+    nbrs[rng.random(nbrs.shape) < 0.1] = -1
+    key = seeded.fold_in(seeded.key(3), 1)
+    a = graph._reverse_edges_device(torch.from_numpy(nbrs).to(cuda), key, 64)
+    b = graph._reverse_edges_device(torch.from_numpy(nbrs).to(cuda), key, 64)
+    c = graph._reverse_edges_device(torch.from_numpy(nbrs).to(cuda), key, 64, 4096)  # drawn in chunks of rows
+    assert torch.equal(a, b) and torch.equal(a, c)
+    np.testing.assert_array_equal(a.cpu().numpy(), graph._reverse_edges_device(torch.from_numpy(nbrs), key, 64).numpy())

@@ -1,11 +1,12 @@
 """LEANN_KNN_MODE in leann_torch's build_graph (CPU). Past the card's
-memory the JAX package reads it (``leann_tpu/ops/graph.py`` build_graph):
-"spill" and "descent" select its approximate k-NN, which the port does not
-have, so the port refuses them by name; any other value, or none, runs the
-exact pass in both packages, and the two build the same graph. Below the
-card neither package reads it. The card's cap is lowered in both packages
-by monkeypatching (``exact_knn_max_n``, ``EXACT_KNN_MAX_N``), as the
-build-resume tests do."""
+memory both packages read it (``leann_tpu/ops/graph.py`` build_graph):
+"spill" and "descent" select the approximate k-NN (spill_knn_streamed,
+nn_descent), whose lists the port's build takes as the JAX package's
+function gives them; any other value, or none, runs the exact pass in both
+packages, and the two build the same graph. Below the card neither package
+reads it. The card's cap is lowered in both packages by monkeypatching
+(``exact_knn_max_n``, ``EXACT_KNN_MAX_N``), as the build-resume tests do.
+``tests/test_torch_approx_knn.py`` holds the approximate passes themselves."""
 
 import numpy as np
 import pytest
@@ -36,7 +37,6 @@ def emb():
 def knn_calls(monkeypatch):
     """Which k-NN pass build_graph ran, with its candidate ids."""
     calls = []
-    one, sharded = tg.exact_knn, tg.exact_knn_sharded
 
     def record(name, fn):
         def run(*a, **kw):
@@ -45,8 +45,8 @@ def knn_calls(monkeypatch):
             return out
         return run
 
-    monkeypatch.setattr(tg, "exact_knn", record("exact_knn", one))
-    monkeypatch.setattr(tg, "exact_knn_sharded", record("exact_knn_sharded", sharded))
+    for name in ("exact_knn", "exact_knn_sharded", "spill_knn_streamed", "nn_descent"):
+        monkeypatch.setattr(tg, name, record(name, getattr(tg, name)))
     return calls
 
 
@@ -57,11 +57,18 @@ def _past_the_card(monkeypatch):
 
 @pytest.mark.parametrize("mode", ["spill", "descent"])
 def test_approximate_modes_past_the_card_are_refused(monkeypatch, emb, knn_calls, mode):
+    """No longer refused: each mode runs its approximate pass (and no exact
+    one), whose lists are the JAX package's function's on the same rows."""
     _past_the_card(monkeypatch)
     monkeypatch.setenv("LEANN_KNN_MODE", mode)
-    with pytest.raises(NotImplementedError, match=rf"LEANN_KNN_MODE={mode}.*not ported.*ROADMAP\.md §A #6"):
-        tg.build_graph(emb, r=R, device="cpu")
-    assert knn_calls == []  # refused before any k-NN work
+    graph, medoid = tg.build_graph(emb, r=R, device="cpu")
+    name = {"spill": "spill_knn_streamed", "descent": "nn_descent"}[mode]
+    assert [n for n, _ in knn_calls] == [name]
+    # chunks of one window: the JAX package pads each chunk to chunk_rows
+    want = (jg.spill_knn_streamed(emb, 2 * R, chunk_rows=2048) if mode == "spill" else jg.nn_descent(emb, 2 * R))[0]
+    got = knn_calls[0][1]
+    assert np.mean([len(set(a) & set(b)) / len(set(b)) for a, b in zip(got.tolist(), want.tolist())]) >= 0.99
+    assert graph.shape == (N, R) and ((graph >= -1) & (graph < N)).all() and 0 <= medoid < N
 
 
 @pytest.mark.parametrize("mode", [None, "exact", "bogus"])

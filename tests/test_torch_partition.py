@@ -285,14 +285,24 @@ def test_repack_relabel_unrelabel_match_jax(tmp_path, corpus, backend, capsys):
 
 
 def test_relabel_refusals(partitioned, tmp_path):
-    """relabel_index(order=None) is not ported (ROADMAP.md §A #7), and
-    a multi-partition index refuses any relabel, as in the JAX package."""
+    """A multi-partition index refuses the locality relabel
+    (relabel_index(order=None), which refused as not ported before it was)
+    and the unrelabel, and an index with neither embeddings nor PQ codes
+    refuses the locality relabel, in both packages alike."""
     from leann_tpu import repack as jax_repack
 
     from leann_torch import repack
 
-    with pytest.raises(NotImplementedError, match="ROADMAP.md §A #7"):
-        repack.relabel_index(partitioned["torch"])
     for mod, prefix in ((repack, partitioned["torch"]), (jax_repack, partitioned["jax"])):
+        kw = {"device": "cpu"} if mod is repack else {}
+        with pytest.raises(ValueError, match="multi-partition"):
+            mod.relabel_index(prefix, **kw)
         with pytest.raises(ValueError, match="multi-partition"):
             mod.unrelabel_index(prefix)
+    for mod in (repack, jax_repack):
+        bare = str(tmp_path / mod.__name__ / "b.leann")
+        os.makedirs(os.path.dirname(bare))
+        np.savez(bare + ".hnsw.npz", neighbors=_seeded_graph(40, 4, 1))
+        kw = {"device": "cpu"} if mod is repack else {}
+        with pytest.raises(ValueError, match="neither embeddings nor PQ codes"):
+            mod.relabel_index(bare, **kw)

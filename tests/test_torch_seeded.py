@@ -1,4 +1,4 @@
-"""leann_torch's numpy threefry against jax.random, and the seeded encoder
+"""leann_torch's threefry against jax.random, and the seeded encoder
 weights it draws against the JAX package's (CPU)."""
 
 import jax

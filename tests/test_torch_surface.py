@@ -336,9 +336,25 @@ def test_cli_without_device_exits_without_cuda(project, capsys, args):
 
 
 def test_repack_relabel_refuses(project, capsys):
+    """``repack --relabel`` runs (it refused before the relabel was
+    ported): over the PQ codes of a 12-chunk index in 2 cells the rows are
+    renumbered and the index searches as before, up to the ids; an index
+    of 2 chunks stores no codes, and the relabel refuses it as the JAX
+    package's does."""
     assert _cli(t_cli, ["build", "demo", "--docs", "docs", *TINY], capsys)[0] == 0
     rc, _, err = _cli(t_cli, ["repack", "demo", "--relabel", "--device", "cpu"], capsys)
-    assert rc == 1 and "relabel_index(order=None)" in err and "not ported" in err
+    assert rc == 1 and "neither embeddings nor PQ codes" in err
+    for i, topic in enumerate(["volcano lava eruption", "violin sonata concert", "glacier ice melting",
+                               "tennis racket serve", "bread yeast oven", "comet orbit telescope",
+                               "chess opening gambit", "coral reef fish", "desert dune camel", "rocket fuel launch"]):
+        (project / "docs" / f"t{i}.txt").write_text(f"{topic} notes. " * 5)
+    assert _cli(t_cli, ["build", "twelve", "--docs", "docs", *TINY], capsys)[0] == 0
+    search = ["search", "twelve", "stock market", "--top-k", "3", "--device", "cpu"]
+    before = _cli(t_cli, search, capsys)
+    rc, out, err = _cli(t_cli, ["repack", "twelve", "--relabel", "--cells", "2", "--device", "cpu"], capsys)
+    assert rc == 0 and "MB" in out and err == ""
+    assert os.path.exists(t_cli.find_index("twelve") + ".ids.perm.npy")
+    assert _cli(t_cli, search, capsys) == before
     rc, out, _ = _cli(t_cli, ["repack", "demo", "--device", "cpu"], capsys)
     assert rc == 0 and "MB" in out
 

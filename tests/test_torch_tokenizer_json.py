@@ -23,7 +23,7 @@ import sys
 
 import numpy as np
 import pytest
-from hypothesis import HealthCheck, given, settings
+from hypothesis import HealthCheck, example, given, settings
 from hypothesis import strategies as st
 
 transformers = pytest.importorskip("transformers")
@@ -317,15 +317,31 @@ def test_precompiled_works_by_grapheme_cluster():
     assert tj.Precompiled(darts_blob({"a": "Y", "a\u0301": "Z"}))("a\u0301b") == "Yb"
     assert tj.Precompiled(darts_blob({"Ａ": "A"}))("Ａ\u0301") == "A"
     assert tj.Precompiled(darts_blob({"ab": "X"}))("ab") == "ab"
+    # a conjunct is one cluster of 11 bytes, so each code point is looked
+    # up alone: the accent stays (split after the virama, the short cluster
+    # "ह\u0301" would go whole)
+    assert tj.Precompiled(darts_blob({"ह": "X"}))("ह्ह\u0301") == "X्X\u0301"
     for rules, text in (({"a": "Y"}, "a\u0301b"), ({"a": "Y", "a\u0301": "Z"}, "a\u0301b"), ({"Ａ": "A"}, "Ａ\u0301"),
-                        ({"ab": "X"}, "ab")):
+                        ({"ab": "X"}, "ab"), ({"ह": "X"}, "ह्ह\u0301")):
         want = tokenizers.normalizers.Precompiled(darts_blob(rules)).normalize_str(text)
         assert tj.Precompiled(darts_blob(rules))(text) == want
 
 
+# a consonant, its script's virama and a consonant: one cluster (GB9c),
+# in each of the six scripts Unicode 15.1 gives conjunct linkers
+CONJUNCTS = ["ह्ह", "ক্ষ", "ક્ષ", "କ୍ଷ", "క్ష", "ക്ഷ"]
+
+
 @settings(max_examples=150, deadline=None)
-@given(st.lists(st.sampled_from(COMPONENT_ALPHABET + ["ำ", "ः", "\U000e0041", "؀", "ힰ"]),
+@given(st.lists(st.sampled_from(COMPONENT_ALPHABET + ["ำ", "ः", "\U000e0041", "؀", "ힰ"]
+                                + sorted(set("".join(CONJUNCTS)))),
                 max_size=30).map("".join))
+@example("ह्ह")
+@example("ক্ষ")
+@example("ક્ષ")
+@example("କ୍ଷ")
+@example("క్ష")
+@example("ക്ഷ")
 def test_graphemes_equal_the_regex_module(text):
     regex = pytest.importorskip("regex")
     assert tj.graphemes(text) == regex.findall(r"\X", text)
