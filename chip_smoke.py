@@ -286,7 +286,7 @@ final line):
      passages and token store stay): no k-NN kernel launched, candidate
      recall@64 against phase 4's B2 lists, step seconds, descent's rounds
      and improved fraction per round, recall@3 of phase 4's queries against
-     its oracle (B1), >= 0.80 for descent, and whether the card's free
+     its oracle (B1), >= 0.80 for descent, and whether the card's total
      memory sent the prune to PQ-decoded rows or the token store to host
      RAM. (c) the locality relabel (repack.relabel_index with no order:
      k-means cells over the stored geometry, here PQ codes decoded) of a
@@ -297,7 +297,26 @@ final line):
      (against phase 4's and phase 11's searches), unrelabel_index restoring
      every array. Fails on any of these. One process on the card
      throughout.
- 17. the kernels line: per kernel, path and k its launches on that path
+ 17. a rebuild into the same prefix and the card under memory pressure.
+     (a) an hnsw index through LeannBuilder over 2,000 of phase 4's chunks,
+     rebuilt into its prefix with the middle 1,998 rows changed (the count
+     and both end rows kept): the passage store and the token cache are
+     rewritten, equal to a fresh build's, and a search for a changed row
+     returns its new text; a third build on the same texts keeps both
+     stores. (b) the modes that the card's memory chooses where a free
+     figure would have moved them (the prune against PQ-decoded rows, the
+     medoid's host pass, the token store in host RAM; the other choices
+     are held on the CPU, tests/test_torch_memory_choices.py), read on the
+     free card and again with all but ~2 GiB of its free memory held in
+     one tensor of this process: the same; at sizes whose chosen mode
+     needs more than the tensor leaves, each of the three returns on the
+     free card and raises beside the tensor, naming what selects its
+     other mode; a 20,000-row diskann build from phase 4's embeddings
+     under LEANN_KNN_MODE=spill with the k-NN cap lowered to 10,000, built
+     on the free card and again beside the tensor: every array of its
+     .diskann.npz (graph, medoid, PQ codes) bit-equal, and a searcher of
+     each keeps its token store in the same place. Fails on any of these.
+ 18. the kernels line: per kernel, path and k its launches on that path
      (each path's counts set to 0 just before it and read just after), its
      device time and call time, its plain version's and a library call's
      time at that path's shapes, and its bound on the card.
@@ -3858,6 +3877,228 @@ def phase_approx_knn(torch, dev, workdir: str, main: dict, spill_data: dict):
     return row
 
 
+# phase 17: a rebuild into the same prefix, and the build beside a full card
+REBUILD_ROWS = 2_000
+PRESSURE_ROWS = 20_000
+PRESSURE_FORCED_MAX_N = 10_000  # the k-NN cap forced under the 20,000 rows, as phase 16 forces it
+PRESSURE_LEFT_BYTES = 2 << 30  # what the held tensor leaves of the card's free memory
+REBUILD_STORES = (".passages.jsonl", ".passages.idx", ".tokens.cache.npz")
+
+
+def _store_stamps(prefix: str) -> dict:
+    """(inode, mtime) of each store file: a rewrite replaces or rewrites it."""
+    return {s: (os.stat(prefix + s).st_ino, os.stat(prefix + s).st_mtime_ns) for s in REBUILD_STORES}
+
+
+def _store_bytes(prefix: str) -> dict:
+    out = {}
+    for s in REBUILD_STORES:
+        if s.endswith(".npz"):
+            z = np.load(prefix + s)
+            out[s] = {k: z[k] for k in z.files}
+        else:
+            with open(prefix + s, "rb") as f:
+                out[s] = f.read()
+    return out
+
+
+def _same_stores(a: dict, b: dict) -> bool:
+    return all(a[s] == b[s] if isinstance(a[s], bytes) else _same_arrays(a[s], b[s]) for s in REBUILD_STORES)
+
+
+def _rebuild_check(torch, dev, workdir: str, chunks) -> dict:
+    """Phase 17 (a): hnsw over ``REBUILD_ROWS`` chunks, rebuilt into its
+    prefix with the middle rows changed, then once more on the same texts."""
+    from leann_torch import LeannBuilder, LeannSearcher
+
+    first = list(chunks[:REBUILD_ROWS])
+    second = [first[0]] + list(chunks[REBUILD_ROWS : 2 * REBUILD_ROWS - 2]) + [first[-1]]
+    mid = REBUILD_ROWS // 2
+    os.makedirs(os.path.join(workdir, "rebuild", "fresh"))
+    prefix = os.path.join(workdir, "rebuild", "r.leann")
+    fresh = os.path.join(workdir, "rebuild", "fresh", "r.leann")
+    builds_s = {}
+
+    def build(name, path, texts):
+        b = LeannBuilder(backend_name="hnsw", embedding_model="hash-minilm", max_length=128, device=dev)
+        for t in texts:
+            b.add_text(t)
+        t = time.time()
+        b.build_index(path)
+        builds_s[name] = {"wall_s": time.time() - t, "phase_s": dict(b.phase_seconds)}
+
+    build("first", prefix, first)
+    stamps = [_store_stamps(prefix)]
+    build("changed", prefix, second)
+    stamps.append(_store_stamps(prefix))
+    build("fresh", fresh, second)
+    rebuilt_equals_fresh = _same_stores(_store_bytes(prefix), _store_bytes(fresh))
+    top = LeannSearcher(prefix, device=dev).search(second[mid], top_k=3, complexity=64, beam_width=8)
+    build("same", prefix, second)
+    stamps.append(_store_stamps(prefix))
+    return {"rows": REBUILD_ROWS, "changed_rows": REBUILD_ROWS - 2, "builds": builds_s,
+            "rewritten": {s: stamps[1][s] != stamps[0][s] for s in REBUILD_STORES},
+            "kept_on_same_texts": {s: stamps[2][s] == stamps[1][s] for s in REBUILD_STORES},
+            "rebuilt_equals_fresh": rebuilt_equals_fresh, "changed_row": mid,
+            "top_ids": [r.id for r in top], "top_is_new_text": top[0].id == str(mid) and top[0].text == second[mid],
+            "texts_current": all(r.text == second[int(r.id)] for r in top)}
+
+
+def _skip_cost(dev, prefix: str, chunks) -> dict:
+    """Phase 17 (a'): the resume skips of the passage store and the token
+    cache on phase 4's chunks and prefix (both up to date there), timed on
+    the host: the keys over every row (api._passages_key, api._rows_sha1),
+    and, for comparison, the first-and-last-row key they replace."""
+    import hashlib
+
+    from leann_torch import LeannBuilder
+    from leann_torch.api import _write_passages
+
+    b = LeannBuilder(backend_name="diskann", embedding_model="hash-minilm", max_length=128, device=dev)
+    for c in chunks:
+        b.add_text(c)
+    stamps = _store_stamps(prefix)
+    texts = [c["text"] for c in b.chunks]
+    out = {"rows": len(chunks)}
+    _, out["passages_skip_s"] = _timed(lambda: _write_passages(b.chunks, prefix))
+    _, out["tokens_skip_s"] = _timed(lambda: b._maybe_write_tokens(texts, prefix))
+
+    def first_last_key():  # the keys before: two rows of the passages, two texts of the tokens
+        h = hashlib.sha1()
+        for c in (b.chunks[0], b.chunks[-1]):
+            h.update(json.dumps({"id": c["id"], "text": c["text"], "metadata": c.get("metadata", {})},
+                                ensure_ascii=False).encode("utf-8"))
+        return h.hexdigest(), hashlib.sha1((texts[0] + "\x00" + texts[-1]).encode("utf-8")).hexdigest()
+
+    _, out["first_last_keys_s"] = _timed(first_last_key)
+    out["skipped"] = _store_stamps(prefix) == stamps
+    return out
+
+
+def _mode_calls(dev, d: int) -> dict:
+    """The modes a free figure would move (the prune's, the medoid's, the
+    token store's) as calls of a row count, at width ``d``."""
+    from leann_torch.backends.diskann.backend import DiskannSearcher
+    from leann_torch.ops import graph
+
+    return {"prune_on_pq": lambda n: graph.prune_on_pq(n, d, dev),
+            "medoid_on_host": lambda n: graph.medoid_on_host(n, d, dev),
+            "tokens_on_host": lambda n: DiskannSearcher.tokens_on_host(n, 128, dev)}
+
+
+def _memory_choices(dev, n: int, d: int) -> dict:
+    """The card's memory as the port reads it, each mode of
+    :func:`_mode_calls` at ``n`` rows, and each at the rows whose chosen
+    mode takes a tenth of the card (on it: more than the held tensor
+    leaves): what it returns, or the first line of what it raises."""
+    from leann_torch.device import card_memory
+
+    free, total = card_memory(dev)
+    tenth = total // 10
+    big = {"prune_on_pq": tenth // (2 * d), "medoid_on_host": tenth // (8 * d), "tokens_on_host": tenth // (4 * 128)}
+    room = {}
+    for name, call in _mode_calls(dev, d).items():
+        try:
+            room[name] = {"rows": big[name], "returns": call(big[name])}
+        except RuntimeError as e:
+            room[name] = {"rows": big[name], "raises": str(e)}
+    return {"card_free": free, "card_total": total,
+            "choices": {name: call(n) for name, call in _mode_calls(dev, d).items()}, "room": room}
+
+
+def _pressure_build(torch, dev, prefix: str, main: dict) -> dict:
+    """Phase 17 (b), one build: diskann over the first ``PRESSURE_ROWS`` of
+    phase 4's embeddings under LEANN_KNN_MODE=spill past a lowered cap ->
+    its .diskann.npz arrays, where a searcher of it keeps the token store,
+    and its step seconds. (No search: the rerank's encoder batches take
+    more than the ~2 GiB the held tensor leaves.)"""
+    from leann_torch import LeannBuilder, LeannSearcher
+    from leann_torch.ops import graph
+
+    n = PRESSURE_ROWS
+    real_cap, saved_mode = graph.exact_knn_max_n, os.environ.get("LEANN_KNN_MODE")
+    graph.exact_knn_max_n = lambda d, k, device: PRESSURE_FORCED_MAX_N
+    os.environ["LEANN_KNN_MODE"] = "spill"
+    try:
+        b = LeannBuilder(backend_name="diskann", embedding_model="hash-minilm", max_length=128, graph_degree=32,
+                         device=dev)
+        t = time.time()
+        b.build_index_from_embeddings(prefix, [str(i) for i in range(n)], main["emb"][:n].copy(),
+                                      texts=main["chunks"][:n])
+        wall = time.time() - t
+    finally:
+        graph.exact_knn_max_n = real_cap
+        if saved_mode is None:
+            os.environ.pop("LEANN_KNN_MODE", None)
+        else:
+            os.environ["LEANN_KNN_MODE"] = saved_mode
+    z = np.load(prefix + ".diskann.npz")
+    return {"arrays": {k: z[k] for k in z.files}, "wall_s": wall, "build_s": dict(b.phase_seconds),
+            "tokens_on_host": LeannSearcher(prefix, device=dev).backend.tokens_host is not None}
+
+
+def phase_rebuild_and_pressure(torch, dev, workdir: str, main: dict) -> dict:
+    """Phase 17 -> its row: (a) :func:`_rebuild_check`; (b) the memory
+    choices and a spill build on the free card, then again with all but
+    ``PRESSURE_LEFT_BYTES`` of its free memory held by one tensor of this
+    process."""
+    from leann_torch.device import card_memory
+    from leann_torch.ops import knn_panel as kp
+    from leann_torch.ops.flat_topk import flat_topk
+
+    counters = (flat_topk, kp.knn_panel, kp.knn_panel_ext, kp.topk_merge)
+    t_phase = time.time()
+    _reset(counters)
+    rebuild = _rebuild_check(torch, dev, workdir, main["chunks"])
+    rebuild["kernel_launches"] = _counts(counters)
+    rebuild["skip_100k"] = _skip_cost(dev, main["prefix"], main["chunks"])
+    t_part = time.time()
+    d = main["emb"].shape[1]
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    readings = {"free_card": _memory_choices(dev, PRESSURE_ROWS, d)}
+    builds = {"free_card": _pressure_build(torch, dev, os.path.join(workdir, "pressure_free.leann"), main)}
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    held = torch.empty(max(card_memory(dev)[0] - PRESSURE_LEFT_BYTES, 0), dtype=torch.uint8, device=dev)
+    try:
+        readings["held"] = _memory_choices(dev, PRESSURE_ROWS, d)
+        builds["held"] = _pressure_build(torch, dev, os.path.join(workdir, "pressure_held.leann"), main)
+    finally:
+        held_bytes = held.numel()
+        del held
+        torch.cuda.empty_cache()
+    a, b = builds["free_card"]["arrays"], builds["held"]["arrays"]
+    row = {"phase": "rebuild_and_pressure", "rebuild": rebuild, "held_bytes": held_bytes, "readings": readings,
+           "same_choices": readings["held"]["choices"] == readings["free_card"]["choices"],
+           "arrays": sorted(a), "arrays_bit_equal": {k: bool(k in b and _same_arrays({k: a[k]}, {k: b[k]}))
+                                                     for k in a},
+           "same_residency": builds["held"]["tokens_on_host"] == builds["free_card"]["tokens_on_host"],
+           "builds": {k: {"wall_s": v["wall_s"], "build_s": v["build_s"], "tokens_on_host": v["tokens_on_host"]}
+                      for k, v in builds.items()},
+           "forced": {"exact_knn_max_n": PRESSURE_FORCED_MAX_N, "LEANN_KNN_MODE": "spill"},
+           "pressure_s": time.time() - t_part, "phase_s": time.time() - t_phase}
+    emit(row)
+    if not (all(rebuild["rewritten"].values()) and all(rebuild["kept_on_same_texts"].values())
+            and rebuild["rebuilt_equals_fresh"] and rebuild["top_is_new_text"] and rebuild["texts_current"]
+            and rebuild["skip_100k"]["skipped"]):
+        fail(f"the rebuild into the same prefix: {rebuild}")
+    if readings["held"]["card_free"] > 4 * PRESSURE_LEFT_BYTES:
+        fail(f"the held tensor left {readings['held']['card_free']:,} bytes free")
+    if not row["same_choices"]:
+        fail(f"a memory choice moved with the card's free memory: {readings}")
+    others = {"prune_on_pq": "LEANN_PRUNE_EBF_MAX_BYTES", "medoid_on_host": "host=True",
+              "tokens_on_host": 'token_residency="host"'}
+    loud = {name: readings["free_card"]["room"][name].get("returns") is False
+            and others[name] in readings["held"]["room"][name].get("raises", "") for name in others}
+    if not all(loud.values()):
+        fail(f"a mode without room did not fail loudly beside the held tensor: {loud}, {readings}")
+    if a.keys() != b.keys() or not all(row["arrays_bit_equal"].values()) or not row["same_residency"]:
+        fail(f"the build beside the held tensor differs: {row['arrays_bit_equal']}, "
+             f"token residency {row['builds']}")
+    return row
+
+
 def _timed(fn):
     """-> (``fn()``, its wall seconds on the host's clock)."""
     t = time.time()
@@ -3922,6 +4163,7 @@ def main() -> int:
         more.append(phase_parallel(torch, dev, workdir, main_state))
         more.append(phase_tokenizer_files(torch, dev, workdir, main_state["chunks"]))
         phase_approx_knn(torch, dev, workdir, main_state, spill_data)
+        phase_rebuild_and_pressure(torch, dev, workdir, main_state)
     for kr, more_launches in more:
         launches.update(more_launches)
         rows += [(name, path, r, b1 if name == "flat_topk" else b2) for (name, path), r in kr.items()]

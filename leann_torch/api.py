@@ -33,7 +33,7 @@ from .embeddings.compute import IN_PROCESS_MODES, compute_embeddings
 from .interface import LeannBackendSearcherInterface
 from .metadata_filter import MetadataFilterEngine
 from .registry import get_backend, register_project_directory
-from .storage import load_ids, load_token_cache, save_ids, tokenize_corpus, write_token_cache
+from .storage import drop_resume_keys, load_ids, load_token_cache, save_ids, tokenize_corpus, write_token_cache
 
 logger = logging.getLogger(__name__)
 
@@ -139,13 +139,31 @@ class PassageManager:
         return self.filter_engine.apply_filters(results, filters)
 
 
-def _passages_fingerprint(chunks: List[Dict[str, Any]]) -> str:
-    """O(1) content key for resume skips: first + last row as serialized."""
+def _rows_sha1(*columns: List[Any]) -> str:
+    """Content key of the resume skips: a hash over every row of each column
+    (ids, texts, metadata), in order, each column serialized in one call
+    (host work well under the write it skips). The sidecars keep it under
+    ``rows_sha1``, a field the JAX package's first-and-last keys lack, so
+    either package rewrites over the other's sidecar."""
     h = hashlib.sha1()
-    for c in (chunks[0], chunks[-1]):
-        h.update(json.dumps({"id": c["id"], "text": c["text"], "metadata": c.get("metadata", {})},
-                            ensure_ascii=False).encode("utf-8"))
-    return h.hexdigest()[:16]
+    for col in columns:
+        h.update(json.dumps(col, ensure_ascii=False).encode("utf-8"))
+    return h.hexdigest()
+
+
+def _passages_key(chunks: List[Dict[str, Any]]) -> Dict[str, Any]:
+    """The passage store's resume key: the row count and every row's id,
+    text and metadata."""
+    return {"count": len(chunks), "rows_sha1": _rows_sha1([c["id"] for c in chunks], [c["text"] for c in chunks],
+                                                          [c.get("metadata", {}) for c in chunks])}
+
+
+def _read_sidecar(path: str) -> Optional[Dict[str, Any]]:
+    try:
+        with open(path) as f:
+            return json.load(f)
+    except (OSError, ValueError):
+        return None
 
 
 @contextlib.contextmanager
@@ -170,18 +188,12 @@ def _write_passages(chunks: List[Dict[str, Any]], prefix: str) -> Dict[str, Any]
     done_path = f"{prefix}.passages.done.json"
     src = {"type": "jsonl", "path": passages_path, "index_path": idx_path, "count": len(chunks)}
     # resume skip: the .done sidecar is written only after both files are
-    # complete and keys on count + byte size + first/last-row content
-    if chunks and os.path.exists(passages_path) and os.path.exists(idx_path):
-        try:
-            with open(done_path) as f:
-                got = json.load(f)
-        except (OSError, ValueError):
-            got = None
-        if (got and got.get("count") == len(chunks)
-                and got.get("fp") == _passages_fingerprint(chunks)
-                and got.get("bytes") == os.path.getsize(passages_path)):
-            logger.info("passages store up to date (%d rows): skipping rewrite", len(chunks))
-            return src
+    # complete and keys on every row (_passages_key)
+    key = _passages_key(chunks) if chunks else None
+    if key and os.path.exists(passages_path) and os.path.exists(idx_path) and _read_sidecar(done_path) == key:
+        logger.info("passages store up to date (%d rows): skipping rewrite", len(chunks))
+        return src
+    drop_resume_keys(prefix, ("passages",))  # a rewrite cut short leaves no key over a mix of old and new rows
     offsets: Dict[str, int] = {}
     with _replacing(passages_path) as f:
         for c in chunks:
@@ -191,10 +203,9 @@ def _write_passages(chunks: List[Dict[str, Any]], prefix: str) -> Dict[str, Any]
             f.write(b"\n")
     with _replacing(idx_path) as f:
         pickle.dump(offsets, f)
-    if chunks:
+    if key:
         with open(done_path, "w") as f:
-            json.dump({"count": len(chunks), "fp": _passages_fingerprint(chunks),
-                       "bytes": os.path.getsize(passages_path)}, f)
+            json.dump(key, f)
     return src
 
 
@@ -361,8 +372,10 @@ class LeannBuilder:
             embeddings = embeddings / np.maximum(np.linalg.norm(embeddings, axis=1, keepdims=True), 1e-12)
         times["embed"] = time.time() - t
         # 1. passages, offsets and ids, before the graph: a compact index
-        # re-encodes the new rows from their tokens
+        # re-encodes the new rows from their tokens. Rows appended: a build
+        # on the old texts rewrites both stores
         t = time.time()
+        drop_resume_keys(prefix)
         with open(f"{prefix}.passages.jsonl", "ab") as f:
             for c in chunks:
                 offsets[c["id"]] = f.tell()
@@ -436,9 +449,13 @@ class LeannBuilder:
                 self.is_recompute = False
                 self.is_compact = False
         chunks = [{"id": str(i), "text": t, "metadata": {}} for i, t in zip(ids, texts)]
+        t = time.time()
         source = _write_passages(chunks, prefix)
+        self.phase_seconds["passages"] = time.time() - t
         if has_text:
+            t = time.time()
             self._maybe_write_tokens(list(texts), prefix)
+            self.phase_seconds["tokens"] = time.time() - t
         self._backend_build(factory, embeddings, [str(i) for i in ids], prefix)
         self._write_meta(prefix, [source], n=len(ids))
 
@@ -470,15 +487,11 @@ class LeannBuilder:
             return
         done_path = f"{prefix}.tokens.cache.done.json"
         want = {"count": len(texts), "model": self.embedding_model,
-                "max_length": self.max_length,
-                "fp": hashlib.sha1((texts[0] + "\x00" + texts[-1]).encode("utf-8")).hexdigest()[:16]}
-        try:  # resume skip
-            with open(done_path) as f:
-                if json.load(f) == want:
-                    logger.info("token cache up to date (%d rows): skipping rewrite", len(texts))
-                    return
-        except (OSError, ValueError):
-            pass
+                "max_length": self.max_length, "rows_sha1": _rows_sha1(texts)}
+        if _read_sidecar(done_path) == want:  # resume skip: the same model over every same text
+            logger.info("token cache up to date (%d rows): skipping rewrite", len(texts))
+            return
+        drop_resume_keys(prefix, ("tokens.cache",))
         from .embeddings.encoder import get_encoder
 
         enc = get_encoder(self.embedding_model, max_length=self.max_length, device=self.device)

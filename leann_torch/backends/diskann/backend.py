@@ -31,6 +31,7 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
+from ... import device as _device
 from ...device import resolve_device
 from ...interface import (
     LeannBackendBuilderInterface,
@@ -41,7 +42,7 @@ from ...ops.beam_search import BeamConfig, rerank_tokens_batch, unpack_results
 from ...ops.graph import build_graph
 from ...ops.pq import choose_m, encode_pq_blocked, lift_codebooks, train_opq, train_pq
 from ...registry import register_backend
-from ...storage import pack_neighbors, save_partition, token_cache_paths
+from ...storage import drop_resume_keys, pack_neighbors, save_partition, token_cache_paths
 from ..common import GraphSearcher, _entry_pool, mips_augment, save_ids, sharded_neighbors
 from .partition import edge_locality, ldg_partition
 
@@ -188,18 +189,16 @@ class DiskannBuilder(LeannBackendBuilderInterface):
                     z = np.load(path)
                     np.savez_compressed(path, tokens=z["tokens"][order], lengths=z["lengths"][order])
                     break
-        done = f"{index_path}.tokens.cache.done.json"
-        if os.path.exists(done):
-            os.remove(done)
+        drop_resume_keys(index_path, ("tokens.cache",))
 
 
 class DiskannSearcher(GraphSearcher, LeannBackendSearcherInterface):
     """Graph, codes, codebooks and entry pool live on the searcher's device;
     the token store too, or in host RAM with the deferred rerank."""
 
-    # share of the card's free memory (at load) the token store may take
-    # before ``token_residency="auto"`` keeps it on the host (the card's
-    # own figure, not the TPU's fixed 4 GB)
+    # share of the card's total memory the token store may take before
+    # ``token_residency="auto"`` keeps it on the host (the card's own
+    # figure, not the TPU's fixed 4 GB)
     HOST_TOKEN_SHARE = 0.25
 
     def __init__(self, index_path: str, sharded: "bool | str" = False, token_residency: str = "auto", **kwargs):
@@ -207,7 +206,8 @@ class DiskannSearcher(GraphSearcher, LeannBackendSearcherInterface):
         keeps it in host RAM (a raw store stays memmapped) and defers the
         exact rerank to a second call over host-gathered rows, "auto" keeps
         it on the host when its i32 form would take more than
-        ``HOST_TOKEN_SHARE`` of the card's free memory. ``sharded`` (True,
+        ``HOST_TOKEN_SHARE`` of the card's total memory
+        (:meth:`tokens_on_host`). ``sharded`` (True,
         or "auto" on a machine with more than one card) searches over a
         ``gp`` mesh of one shard per card, with the
         token store on the devices, split over them."""
@@ -216,15 +216,31 @@ class DiskannSearcher(GraphSearcher, LeannBackendSearcherInterface):
             raise ValueError(f"unknown token_residency {token_residency!r}")
         want_sharded = self._want_sharded(sharded, self.device)
         host = token_residency == "host" and not want_sharded
-        if token_residency == "auto" and self.device.type == "cuda" and not want_sharded:
-            tok_bytes = 4 * self.meta.get("num_chunks", 0) * self.max_length  # i32 on the card
-            host = tok_bytes > self.HOST_TOKEN_SHARE * torch.cuda.mem_get_info(self.device)[0]
+        if token_residency == "auto" and not want_sharded:
+            host = self.tokens_on_host(self.meta.get("num_chunks", 0), self.max_length, self.device)
         self._load(np.load(f"{index_path}.diskann.npz", allow_pickle=False), tokens_on_device=not host)
         if want_sharded:
             self._shard()
         if self.tokens_host is not None:
             logger.info("diskann tokens host-resident (%.2f GB); deferred rerank",
                         self.tokens_host.nbytes / 2**30)
+
+    @classmethod
+    def tokens_on_host(cls, n_chunks: int, max_length: int, device: "str | torch.device") -> bool:
+        """``token_residency="auto"``'s choice: host RAM when the i32 store
+        would take more than ``HOST_TOKEN_SHARE`` of the card's total
+        memory. Where it would not, the card must have the room now, else
+        this raises (:func:`device.require_room`). The CPU keeps it on
+        the device."""
+        dev = torch.device(device)
+        if dev.type != "cuda":
+            return False
+        tok_bytes = 4 * n_chunks * max_length  # i32 on the card
+        if tok_bytes > cls.HOST_TOKEN_SHARE * _device.card_memory(dev)[1]:
+            return True
+        _device.require_room(dev, tok_bytes, "the token store on the card",
+                             'token_residency="host" (the store in host RAM, the deferred rerank)')
+        return False
 
     @torch.no_grad()
     def search(self, query: np.ndarray, top_k: int, adaptive_steps: int = 0, **kwargs) -> Dict[str, np.ndarray]:

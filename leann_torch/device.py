@@ -1,4 +1,5 @@
-"""Device selection and the products every entry point of the port shares.
+"""Device selection, the card's memory and the products every entry point
+of the port shares.
 
 Entry points take ``device=`` and default to ``"cuda"``. There is no
 fallback: a caller who wants the CPU asks for it, and a CUDA request on a
@@ -12,7 +13,7 @@ them. Products whose value must not depend on them go through
 
 from __future__ import annotations
 
-from typing import List
+from typing import List, Tuple
 
 import torch
 
@@ -24,6 +25,37 @@ def resolve_device(device: "str | torch.device" = "cuda") -> torch.device:
             f"device={str(device)!r} was requested but CUDA is not available; "
             "pass device='cpu' to run on the CPU")
     return dev
+
+
+def card_memory(dev: "str | torch.device") -> Tuple[int, int]:
+    """(free, total) bytes of the card ``dev``: the port's one memory query.
+    ``free`` is what ``mem_get_info`` reports free plus what this process's caching
+    allocator holds unused (it hands that out again); other processes'
+    memory counts as used. The build's modes read ``total`` only, so an
+    index built twice from the same inputs is the same index whoever else
+    is on the card; ``free`` sizes chunks whose size does not change a
+    result, and is checked by :func:`require_room`."""
+    dev = torch.device(dev)
+    free, total = torch.cuda.mem_get_info(dev)
+    cached = torch.cuda.memory_reserved(dev) - torch.cuda.memory_allocated(dev)
+    return int(free + cached), int(total)
+
+
+def require_room(dev: "str | torch.device", need: int, what: str, other: "str | None") -> None:
+    """Raise unless the card ``dev`` has ``need`` bytes free for ``what``,
+    the mode that its total memory chose. No mode changes because another
+    process holds memory: the message names the free and total bytes and
+    ``other``, what selects the other mode, or says that nothing does
+    (``other`` None). No check off the card."""
+    dev = torch.device(dev)
+    if dev.type != "cuda":
+        return
+    free, total = card_memory(dev)
+    if need > free:
+        how = f"or select the other mode with {other}" if other else "no variable selects another mode"
+        raise RuntimeError(
+            f"{what} needs {need:,} bytes on {dev}, which has {free:,} free of {total:,}: other processes "
+            f"hold the rest. The mode follows the card's total memory, not what is free: free the card; {how}")
 
 
 def bf16_parts(x: torch.Tensor) -> List[torch.Tensor]:

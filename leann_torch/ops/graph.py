@@ -37,12 +37,13 @@ from typing import Dict, Optional, Tuple
 import numpy as np
 import torch
 
+from .. import device as _device
 from ..device import matmul, resolve_device
 from ..embeddings import seeded
 from .distance import INF
 from .knn_panel import knn_panel, knn_panel_ext, topk_merge, upload_panel_inputs
 from .pq import _bucket_sample, decode_pq, encode_pq, train_pq
-from .tile_plan import TILE_COLS
+from .tile_plan import TILE_COLS, list_entries, merge_entries, multiprocessors, plan_launch
 
 logger = logging.getLogger(__name__)
 
@@ -119,31 +120,55 @@ def _bucket_rows(n: int, block: int) -> int:
     return v
 
 
+def _exact_row_bytes(d: int, k: int) -> int:
+    """Card bytes of one row of the exact pass: its bf16 row, f32 norm and
+    list of k candidates (id and distance)."""
+    return 2 * (d + (-d % 16)) + 4 + 8 * k
+
+
 def exact_knn_max_n(d: int, k: int, device: "str | torch.device") -> int:
-    """Largest corpus the card-resident exact pass takes on ``device``: bf16
-    rows, f32 norms and the [N, k] candidate lists must fit in half of the
-    card's free memory (re-derived from the card, not the TPU's 16 GB
-    constant). Above it build_graph takes :func:`exact_knn_sharded`. The CPU
-    has no such cap."""
+    """Largest corpus the card-resident exact pass takes on ``device``: its
+    rows (:func:`_exact_row_bytes`) must fit in half of the card's total
+    memory (re-derived from the card, not the TPU's 16 GB constant). Above
+    it build_graph takes :func:`exact_knn_sharded`. The CPU has no such
+    cap."""
     dev = torch.device(device)
     if dev.type != "cuda":
         return 1 << 62
-    free, _ = torch.cuda.mem_get_info(dev)
-    return int(free // 2 // (2 * d + 4 + 8 * k))
+    return int(_device.card_memory(dev)[1] // 2 // _exact_row_bytes(d, k))
+
+
+def exact_knn_bytes(n: int, d: int, k: int, device: "str | torch.device") -> int:
+    """Card bytes :func:`exact_knn` takes over ``n`` rows: every row's share
+    as :func:`exact_knn_max_n` counts it, and one launch's partial lists
+    and scratch (``tile_plan``'s plan of ``KNN_ROWS_PER_LAUNCH`` rows)."""
+    rows = min(n, KNN_ROWS_PER_LAUNCH)
+    plan = plan_launch(rows, n, k, d + (-d % 16), multiprocessors(device))
+    partial = rows * plan.col_splits * k if plan.col_splits > 1 else 0
+    merge = merge_entries(rows, k) if plan.col_splits > 1 else 0
+    return n * _exact_row_bytes(d, k) + 8 * (partial + list_entries(plan, rows, k) + merge)
 
 
 def prune_ebf_max_bytes(device: "str | torch.device") -> int:
     """Largest bf16 corpus matrix the prune keeps on ``device``: half of the
-    card's free memory (re-derived from the card, not the TPU's 10 GB).
+    card's total memory (re-derived from the card, not the TPU's 10 GB).
     Above it the prune decodes candidates from PQ codes. The CPU has no
     such cap. LEANN_PRUNE_EBF_MAX_BYTES, where set, is the cap on either."""
     dev = torch.device(device)
-    if dev.type != "cuda":
-        cap = 1 << 62
-    else:
-        free, _ = torch.cuda.mem_get_info(dev)
-        cap = int(free // 2)
+    cap = int(_device.card_memory(dev)[1] // 2) if dev.type == "cuda" else 1 << 62
     return env_override("LEANN_PRUNE_EBF_MAX_BYTES", cap)
+
+
+def prune_on_pq(n: int, d: int, device: "str | torch.device") -> bool:
+    """Whether the prune decodes candidates from PQ codes: the bf16 matrix
+    is larger than :func:`prune_ebf_max_bytes`. Where it is not, the card
+    must have the room for the matrix and its norms now, else this raises
+    (:func:`device.require_room`)."""
+    if n * d * 2 > prune_ebf_max_bytes(device):
+        return True
+    _device.require_room(device, n * (2 * (d + (-d % 16)) + 4), "the prune against the bf16 matrix",
+                         "LEANN_PRUNE_EBF_MAX_BYTES=1 (the prune against PQ-decoded rows)")
+    return False
 
 
 def exact_knn(emb: np.ndarray, k: int,
@@ -444,11 +469,10 @@ WINDOW_BATCH_BYTES = 512 << 20
 
 def _device_budget(dev: torch.device) -> int:
     """Bytes a pass may hold at once on ``dev``: a quarter of the card's
-    free memory; on the CPU a fixed 1 GiB."""
-    if dev.type == "cuda":
-        free, _ = torch.cuda.mem_get_info(dev)
-        return int(free // 4)
-    return 1 << 30
+    free memory; on the CPU a fixed 1 GiB. It sizes chunks only (spill's
+    uploads, descent's blocks a step), whose size leaves the lists the
+    same bit for bit."""
+    return int(_device.card_memory(dev)[0] // 4) if dev.type == "cuda" else 1 << 30
 
 
 def _big_empty(shape, dtype, scratch_dir: str, name: str):
@@ -857,18 +881,16 @@ def _rows_within(nbytes: float, row_bytes: int, np_total: int, block: int) -> in
     return min(np_total, max(block, rows // block * block))
 
 
-def descent_budget(device: "str | torch.device") -> float:
+def descent_budget(device: "str | torch.device", free: bool = False) -> float:
     """Card bytes above which :func:`nn_descent` keeps its distances and
-    round outputs in host RAM, and within which it sizes each chunk of the
-    reverse-edge draw and of a host-resident round: half of the card's free
-    memory (re-derived from the card, not the TPU's 12.5e9); none on the
-    CPU.
-    LEANN_DESCENT_HBM_BUDGET, where set, is the budget on either."""
+    round outputs in host RAM: half of the card's total memory (re-derived
+    from the card, not the TPU's 12.5e9); none on the CPU. With ``free``,
+    half of what is free now: the bytes within which it sizes each chunk
+    of the reverse-edge draw and of a host-resident round, whose size
+    leaves the lists the same bit for bit.
+    LEANN_DESCENT_HBM_BUDGET, where set, is either budget on either."""
     dev = torch.device(device)
-    budget = float("inf")
-    if dev.type == "cuda":
-        free, _ = torch.cuda.mem_get_info(dev)
-        budget = float(free // 2)
+    budget = float(_device.card_memory(dev)[0 if free else 1] // 2) if dev.type == "cuda" else float("inf")
     return env_override("LEANN_DESCENT_HBM_BUDGET", budget)
 
 
@@ -965,7 +987,13 @@ def nn_descent(
     if host_state:
         logger.info("nn_descent: host-resident state (est %.1f GB on the card > budget %.1f GB)",
                     est_dev / 1e9, budget / 1e9)
-    left = max(budget - (matrix + np_total * k * (8 if host_state else 20)), 0.0)
+        _device.require_room(dev, matrix + np_total * k * 8, "NN-descent's matrix and lists on the card",
+                             "LEANN_KNN_MODE=spill (the window pass, a chunk of rows on the card at a time)")
+    else:
+        _device.require_room(dev, est_dev, "NN-descent's state on the card",
+                             "LEANN_DESCENT_HBM_BUDGET=1 (its distances and round outputs in host RAM)")
+    state = matrix + np_total * k * (8 if host_state else 20)
+    left = max(descent_budget(dev, free=True) - state, 0.0)
     # what is left bounds each reverse-edge draw and, in host RAM, each
     # round's chunk of rows (their distances in, lists and distances out)
     rev_rows = _rows_within(left, k * REV_DRAW_SLOT_BYTES, np_total, block)
@@ -1281,16 +1309,28 @@ def _trim_host(label: str = "") -> None:
         logger.info("host trim after %s: rss %.1f GB", label, _rss_gb())
 
 
+def medoid_on_host(n: int, d: int, device: "str | torch.device") -> bool:
+    """Whether :func:`compute_medoid` takes its host pass: the f32 matrix
+    and its centred copy would take more than half of the card's total
+    memory. Where they would not, the card must have the room now, else
+    this raises (:func:`device.require_room`)."""
+    dev = torch.device(device)
+    if dev.type != "cuda":
+        return False
+    if n * d * 8 > _device.card_memory(dev)[1] // 2:
+        return True
+    _device.require_room(dev, n * d * 8, "the medoid's pass on the card",
+                         "compute_medoid(..., host=True), which build_graph takes past exact_knn_max_n")
+    return False
+
+
 def compute_medoid(emb: np.ndarray, device: "str | torch.device" = "cuda", host: bool = False) -> int:
-    """Row closest to the mean. On the card unless ``host`` or the f32
-    matrix and its centred copy would take more than half of its free
-    memory; then a host pass over blocks of rows."""
+    """Row closest to the mean. On the card unless ``host`` or
+    :func:`medoid_on_host`; then a host pass over blocks of rows (the mean
+    in f64)."""
     dev = resolve_device(device)
     n, d = emb.shape
-    if not host and dev.type == "cuda":
-        free, _ = torch.cuda.mem_get_info(dev)
-        host = n * d * 8 > free // 2
-    if host:
+    if host or medoid_on_host(n, d, dev):
         mean = emb.mean(axis=0, dtype=np.float64).astype(np.float32)
         best_d, best_i = np.inf, 0
         for s in range(0, n, HOST_BLOCK_ROWS):
@@ -1445,6 +1485,10 @@ def build_graph(
     elif sharded:
         knn_ids, _ = exact_knn_sharded(emb, c, checkpoint_dir=checkpoint_dir or "", device=dev)
     else:
+        if dev.type == "cuda":
+            _device.require_room(dev, exact_knn_bytes(n, d, c, dev),
+                                 "the exact k-NN on the card (past graph.exact_knn_max_n, from the card's total "
+                                 "memory, the sharded pass)", None)
         knn_ids, _ = exact_knn(emb, c, device=dev)
     if knn_path and not knn_resumed:
         _ckpt_save(knn_path, key, knn_ids)  # renames a spill scratch memmap into place
@@ -1466,7 +1510,7 @@ def build_graph(
     t0 = time.time()
     d_pad = d + (-d % 16)
     blk = max(8, PRUNE_BLOCK_BYTES // max(cw * (cw + d_pad) * 4, 1))
-    pq_mode = n * d * 2 > prune_ebf_max_bytes(dev)
+    pq_mode = prune_on_pq(n, d, dev)
     if pq_mode:
         neighbors = _prune_pq_mode(emb, knn_ids, r, alpha, keep_closest, blk, dev, checkpoint_dir, key)
     else:

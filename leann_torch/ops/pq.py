@@ -28,7 +28,9 @@ from ..device import matmul, resolve_device
 logger = logging.getLogger(__name__)
 
 # bound on the [M, S, K] f32 distance block one k-means step materializes
-_KMEANS_BLOCK_BYTES = 1 << 30
+# (its temporaries take about three such blocks: the training fits beside
+# other processes on a card with ~2 GiB free)
+_KMEANS_BLOCK_BYTES = 256 << 20
 
 
 def choose_m(dim: int, target_m: int = 0) -> int:
@@ -70,7 +72,9 @@ def _kmeans_all_subspaces(xs: torch.Tensor, init: torch.Tensor, n_iters: int) ->
         counts = torch.empty((m, k), dtype=torch.float32, device=xs.device)
         sums = torch.empty((m, k, ds), dtype=torch.float32, device=xs.device)
         for i in range(0, m, step):
-            one_hot = torch.nn.functional.one_hot(a[i : i + step], k).to(torch.bfloat16)  # [m', S, K], exact
+            a_i = a[i : i + step]
+            one_hot = torch.zeros((*a_i.shape, k), dtype=torch.bfloat16, device=xs.device)
+            one_hot.scatter_(2, a_i[:, :, None], 1.0)  # [m', S, K], exact, without an int64 copy
             counts[i : i + step] = one_hot.sum(dim=1, dtype=torch.float32)
             sums[i : i + step] = matmul(one_hot.transpose(1, 2), xs[i : i + step])
         c = torch.where(counts[:, :, None] > 0, sums / counts.clamp_min(1.0)[:, :, None], c)
@@ -180,8 +184,12 @@ def encode_pq(x: torch.Tensor, codebooks: torch.Tensor) -> torch.Tensor:
     return _assign(xs, codebooks).T.to(torch.uint8)
 
 
-def encode_pq_blocked(x: np.ndarray, codebooks: np.ndarray, block: int = 16384,
+def encode_pq_blocked(x: np.ndarray, codebooks: np.ndarray, block: int = 4096,
                       device: "str | torch.device" = "cuda") -> np.ndarray:
+    """Codes of ``x``'s rows, ``block`` rows on the card at a time: at
+    lifted OPQ's M = 48, K = 256 a block's distances take 200 MB (three
+    such temporaries at once), so the encoding fits beside other processes
+    on a card with ~2 GiB free."""
     dev = resolve_device(device)
     t0 = time.time()
     cb = torch.tensor(codebooks, dtype=torch.float32, device=dev)

@@ -32,6 +32,7 @@ import torch
 
 from .ops.relabel import decoded_source, edge_locality, locality_order, matrix_source
 from .storage import (
+    drop_resume_keys,
     index_all_in_bytes,
     load_ids,
     load_partition,
@@ -154,6 +155,7 @@ def relabel_index(prefix: str, n_cells: int = 0, order: "np.ndarray | None" = No
     if np.array_equal(order, np.arange(n)):
         return {"before_bytes": before, "after_bytes": before,
                 "steps": ["relabel: corpus too small, identity order"]}
+    drop_resume_keys(prefix, ("tokens.cache",))  # the token rows move: a rebuild on the same texts rewrites them
     new_of_old = np.empty(n, np.int64)
     new_of_old[order] = np.arange(n)
 

@@ -183,6 +183,19 @@ def token_cache_paths(index_path: str) -> dict:
     }
 
 
+def drop_resume_keys(index_path: str, stores=("passages", "tokens.cache")) -> None:
+    """Remove the build's resume sidecars (``<store>.done.json``) of
+    ``stores`` before they are rewritten: by the build, or outside it (an
+    insert appends to both, a relabel or a relayout moves the token rows;
+    the passages are found by id and stay right). A later build on the
+    same texts then rewrites them instead of keeping rows cut short,
+    appended or in another order."""
+    for store in stores:
+        path = f"{index_path}.{store}.done.json"
+        if os.path.exists(path):
+            os.remove(path)
+
+
 def archive_token_cache(index_path: str, level: int = 6,
                         chunk_rows: int = 1 << 17, remove_raw: bool = True) -> dict:
     """Compress a raw token store to its at-rest archive (~0.47x, measured
